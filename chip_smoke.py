@@ -12,17 +12,27 @@ operating point of the JAX package's bench (fix confidence 0.98,
 2-window streaks, damage gate 0.25, 3 policy windows of 100, rho boost
 5000, max_iter 10000).
 
+Then the large-rung path: the reference's xl CA instance (800 items x
+4000 bids), 32 instances padded to (m, n) = (1664, 4096), solved by the
+blocked single-stream solve (``core.lp.solve_blocked(stream=True)``,
+bf16 E, blocks of 8, windows of 500, 9000 iterations) with K3 the sweep
+and, on the packed-symmetric G^{-1} route, K4.
+
 Phases, cheapest first, each under its own deadline and a watchdog that
 turns a hang into a traceback and a non-zero exit: device, build (one
-nvcc call), K1 (with planted faults that its limits must catch) and K2
-against their plain PyTorch versions on the card, the plain solve, the
-l2f solve, K1's exit for done instances from the plain solve's end
-state, kernel timings; the whole script under 600 s.  Fails on a
-build or launch error, a kernel/plain disagreement, a non-finite value,
-an infeasible instance, a kernel that the main path did not launch, or
-an l2f mean objective gap above +2% against the plain solve.  Prints one
-progress line per phase, a JSON ``kernels`` line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+nvcc process per source, started together), K1 (with planted faults
+that its limits must catch) and K2 against their plain PyTorch versions
+on the card, the plain solve, the l2f solve, K1's exit for done
+instances from the plain solve's end state, the xl instances, K3 (with
+two planted faults) and K4 against their plain versions on the first
+block of 8, the xl solve, a packed-symmetric window, kernel timings;
+the whole script under 600 s.  Fails on a build or launch error, a
+kernel/plain disagreement, a non-finite value, an infeasible instance, a
+kernel that its path did not launch, an l2f mean objective gap above +2%
+against the plain solve, or an xl mean objective more than 10% worse
+than the JAX package's TPU record.  Prints one progress line per phase,
+a JSON ``kernels`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device: without one it exits non-zero at once.  It imports
 only the port, torch, numpy and the standard library, and writes
@@ -46,6 +56,26 @@ TOTAL_BUDGET_S = 600           # whole script, build included
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 K2_TOL = 1e-4                  # absolute, on the sigmoids
+# The large rung: the reference's xl instance (800 items x 4000 bids,
+# LPboxADMMsolver.cpp:2461-2469), 32 instances made as the JAX package's
+# scripts/bench_ladder.py makes them (seed 2207 + n_bids), padded to
+# (m, n) = (1664, 4096), solved by that script's shipped xl row
+# stream-bf16-c9000-rep.  Its TPU record (bench_cache/ladder.json, quality
+# only) is a mean objective of -57 328.3 with 0 infeasible; the f64 CPU
+# oracle for instance 0 is -50 731.3 (bench_cache/cpu_oracle_800_4000.json).
+XL_ITEMS, XL_BIDS, XL_BATCH, XL_BLOCK = 800, 4000, 32, 8
+XL_SEED = 2207 + XL_BIDS
+XL_TPU_MEAN_OBJ, XL_ORACLE_OBJ0 = -57328.3, -50731.3
+XL_WINDOW, XL_MAX_ITERS = 500, 9000
+XL_DROP, XL_REPAIR, XL_SWAP = 64, 16, 4
+# One K3 sweep against its plain version: every output to 1e-4 relative
+# to max(1, max |ref|) (each of the 12 per-column outputs and F as a
+# whole, the 16 sums slot by slot): the same elementwise formulas, with
+# f32 sums over m = 1664 rows and n = 4096 columns in another order.
+K3_TOL = 1e-4
+# K4 against its plain version and the dense product: 1e-5 (sums over
+# 1664 terms in another order; the scale is stated in k4_check).
+K4_TOL = 1e-5
 
 T_START = time.perf_counter()
 
@@ -286,6 +316,217 @@ def k1_done_check(st, prob, cfg, fused_lp, compare):
     return int(d.sum())
 
 
+def cuda_ms_cold(fn, reps, flush):
+    """Mean milliseconds of one call of ``fn`` on the card with L2 cold:
+    before each call ``flush`` (1 GiB, against the 50 MB L2) is read, as
+    the sweep reads E before each G^{-1} apply in the solve, leaving L2
+    clean (a write would leave dirty lines whose write-back the timed
+    call pays).  The read (~0.3 ms) also keeps the card busy while the
+    host prepares the call, so the events around the call time the
+    device's work and not the wrapper's host time."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def rel_to_ref(a, b):
+    """max |a - b| / max(1, max |b|)."""
+    return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+K3_ROWS = [f"{f}_{br}" for f in ("x", "z1", "z2", "y1", "base", "shift")
+           for br in ("keep", "exact")]
+
+
+def k3_errors(k, p):
+    """Per output of a sweep, its error relative to max(1, max |ref|)."""
+    out = {name: rel_to_ref(k.V[:, r], p.V[:, r])
+           for r, name in enumerate(K3_ROWS)}
+    out["F"] = rel_to_ref(k.F, p.F)
+    out["acc"] = max(rel_to_ref(k.acc[:, i], p.acc[:, i])
+                     for i in range(k.acc.shape[1]))
+    return out
+
+
+def k3_check(prob0, cfg, lp, fused_stream):
+    """K3 against its plain version on the first xl block (bf16 E): one
+    sweep from the state after 24 iterations (rho steps at the next
+    one), two planted faults the limit must catch, a repeat launch and
+    the f32-E launch bit for bit, and 20 iterations of the stream window
+    with the kernel against the window with the plain sweep."""
+    import torch
+    s0 = lp.init_state(prob0, cfg)
+    E16 = fused_stream.stream_operand(prob0.E, cfg)
+    s24 = fused_stream.lp_window_stream_plain(s0, prob0, cfg, 24,
+                                              skip_cvg_at=0, E_op=E16)
+    carry = fused_stream._bootstrap(s24, prob0, cfg)
+    free_f = s24.free.float()
+    args = fused_stream._sweep_args(carry, E16, prob0, free_f, cfg)
+    k = fused_stream.sweep_cuda(*args)
+    p = fused_stream.sweep_plain(*args)
+    errs = k3_errors(k, p)
+    log("  K3 one sweep (8, 1664, 4096) bf16 E, error / max(1, max|ref|): "
+        + " ".join(f"{f}={e:.2e}" for f, e in errs.items()))
+    require(finite(*k), "K3: finite")
+    require(max(errs.values()) <= K3_TOL,
+            f"K3 sweep over {K3_TOL:g}: {errs}")
+
+    rho, rho_nx = args[-3], args[-1]
+    require(rho_nx != rho, "K3 check: rho steps at the next iteration")
+    bad = k3_errors(fused_stream.sweep_cuda(*args[:-1], rho), p)
+    log(f"  K3 planted fault rho_next = rho: largest {max(bad.values()):.2e}")
+    require(max(bad.values()) > K3_TOL,
+            f"K3 limit {K3_TOL:g} misses the planted fault rho_next = rho")
+    V = p.V
+    A = torch.stack([V[:, 8], V[:, 10], free_f * V[:, 6],
+                     free_f * (V[:, 0] >= 0.5).float(), V[:, 9], V[:, 11],
+                     free_f * V[:, 7], free_f * (V[:, 1] >= 0.5).float()], 1)
+    j0 = prob0.n // 2
+    tile = slice(j0, j0 + 32)
+    F_bad = k.F - torch.bmm(A[:, :, tile],
+                            prob0.E[:, :, tile].float().transpose(1, 2))
+    bad_f = rel_to_ref(F_bad, p.F)
+    log(f"  K3 planted fault F without columns {j0}..{j0 + 31}: {bad_f:.2e}")
+    require(bad_f > K3_TOL,
+            f"K3 limit {K3_TOL:g} misses the planted fault of a lost tile")
+    again = fused_stream.sweep_cuda(*args)
+    f32 = fused_stream.sweep_cuda(prob0.E, *args[1:])
+    require(all(torch.equal(a, b) for a, b in zip(k, again)),
+            "K3 repeat launch: same bits")
+    require(all(torch.equal(a, b) for a, b in zip(k, f32)),
+            "K3 bf16 E and f32 E: same bits")
+
+    kw = fused_stream.lp_window_stream(s0, prob0, cfg, 20, skip_cvg_at=0,
+                                       E_op=E16)
+    pw = fused_stream.lp_window_stream_plain(s0, prob0, cfg, 20,
+                                             skip_cvg_at=0, E_op=E16)
+    werrs = k1_errors(kw, pw, cfg)
+    require(bool((kw.done == pw.done).all()) and kw.it == pw.it == 20,
+            "K3 window: done flags and iterations")
+    log("  K3 20-iteration window vs plain sweep, in x units: "
+        + " ".join(f"{f}={e[1]:.2e}" for f, e in werrs.items()))
+    over = k1_excess(werrs)
+    require(not over, f"K3 window: {over} over {K1_TOL:g}")
+    # largest absolute error of the O(1) outputs: x and y1 of one sweep,
+    # x and its copies after 20 iterations
+    max_abs = max([(k.V[:, r] - p.V[:, r]).abs().max().item()
+                   for r in (0, 1, 6, 7)]
+                  + [werrs[f][0] for f in K1_ABS])
+    return {"max_abs_err": max_abs, "sweep": errs,
+            "window_x_units": max(e[1] for e in werrs.values())}, \
+        s0, E16, args, carry
+
+
+def k4_check(prob0, s0, carry, symm):
+    """K4 against its plain version and the dense product on the first
+    block's G^{-1} (8, 1664, 1664), and a repeat launch bit for bit.  Two
+    vectors: a seeded normal one, held to K4_TOL of max |ref|; and E rhs
+    of the check's state, the vector the solve applies G^{-1} to, held to
+    K4_TOL of the terms' scale max_i sum_j |G_ij| |v_j|, because there
+    G^{-1} v cancels terms about 300x larger than the result (measured on
+    the CPU at this shape: f32 against f64, the dense product itself is
+    off by 2.8e-5 of max |ref|)."""
+    import torch
+    Gp = symm.pack_tril(s0.ginv)
+    g = torch.Generator("cuda").manual_seed(0)
+    vecs = {"normal": torch.randn(carry.rhs.shape[0], prob0.m, device="cuda",
+                                  generator=g),
+            "E rhs": torch.bmm(prob0.E.float(), carry.rhs[..., None])[..., 0]}
+    errs, max_abs = {}, 0.0
+    for name, v in vecs.items():
+        y = symm.symm_matvec_cuda(Gp, v)
+        require(finite(y), f"K4 {name}: finite")
+        scale = (torch.bmm(s0.ginv.abs(), v.abs()[..., None]).max().item()
+                 if name == "E rhs" else None)
+        for ref_name, ref in (("plain", symm.symm_matvec_plain(Gp, v)), (
+                "dense bmm", torch.bmm(s0.ginv, v[..., None])[..., 0])):
+            d = (y - ref).abs().max().item()
+            errs[f"{name} vs {ref_name}"] = d / (scale or
+                                                 ref.abs().max().item())
+            if ref_name == "plain":
+                max_abs = max(max_abs, d)
+        require(torch.equal(y, symm.symm_matvec_cuda(Gp, v)),
+                f"K4 {name}: repeat launch, same bits")
+    log(f"  K4 (8, 1664), packed {tuple(Gp.shape)}: "
+        + " ".join(f"{k}={e:.2e}" for k, e in errs.items()))
+    require(max(errs.values()) <= K4_TOL, f"K4 over {K4_TOL:g}: {errs}")
+    return {"max_abs_err": max_abs, "errs": errs}, Gp, vecs["E rhs"]
+
+
+def stream_split(s0, prob0, cfg, E16, fused_stream, W=100):
+    """One window of W iterations from the solve's start, run as
+    ``lp_window_stream`` runs it, with CUDA events around each sweep (K3)
+    and each glue; then the same window without the per-iteration read
+    of the all-done flag; then 20 iterations under the profiler for the
+    card's busy time per iteration.  Event spans include the card's idle
+    time while the host enqueues; the idle share is 1 - busy / wall."""
+    import torch
+    free_f = s0.free.float()
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+           for _ in range(W)]
+    carry = fused_stream._bootstrap(s0, prob0, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for e0, e1, e2 in evs:
+        if bool(carry.state.done.all()):
+            break
+        e0.record()
+        outs = fused_stream.sweep_cuda(*fused_stream._sweep_args(
+            carry, E16, prob0, free_f, cfg))
+        e1.record()
+        carry = fused_stream._glue(carry, outs, prob0, cfg, 0)
+        e2.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k3 = sum(e0.elapsed_time(e1) for e0, e1, _ in evs)
+    glue = sum(e1.elapsed_time(e2) for _, e1, e2 in evs)
+    carry = fused_stream._bootstrap(s0, prob0, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(W):
+        outs = fused_stream.sweep_cuda(*fused_stream._sweep_args(
+            carry, E16, prob0, free_f, cfg))
+        carry = fused_stream._glue(carry, outs, prob0, cfg, 0)
+    torch.cuda.synchronize()
+    wall_noflag = time.perf_counter() - t0
+    # the card's busy time: kernels of WP iterations under the profiler
+    WP = 20
+    carry = fused_stream._bootstrap(s0, prob0, cfg)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(WP):
+            if bool(carry.state.done.all()):
+                break
+            outs = fused_stream.sweep_cuda(*fused_stream._sweep_args(
+                carry, E16, prob0, free_f, cfg))
+            carry = fused_stream._glue(carry, outs, prob0, cfg, 0)
+        torch.cuda.synchronize()
+    evs_k = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in evs_k) / 1e3 / WP
+    k3_dev = sum(e.self_device_time_total for e in evs_k
+                 if "sweep_kernel" in e.key or "finish_kernel" in e.key) \
+        / 1e3 / WP
+    kernels = sum(e.count for e in evs_k if e.self_device_time_total > 0) \
+        / WP
+    return {"iters": W, "k3_ms_per_it": k3 / W, "glue_ms_per_it": glue / W,
+            "wall_ms_per_it": wall * 1e3 / W,
+            "wall_ms_per_it_no_flag": wall_noflag * 1e3 / W,
+            "device_busy_ms_per_it": busy, "k3_device_ms_per_it": k3_dev,
+            "device_kernels_per_it": kernels,
+            "device_idle_share": 1.0 - busy / (wall * 1e3 / W)}
+
+
 def main():
     faulthandler.enable()
     faulthandler.dump_traceback_later(TOTAL_BUDGET_S, exit=True)
@@ -414,9 +655,107 @@ def main():
         log(f"  K1 done-instance exit: {n_frozen} frozen instances")
     summary["k1_done_check_s"] = ph.seconds
 
+    # --- the large rung: the reference's xl instances --------------------
+    from lpbox_admm_tpu_torch.ops import fused_stream, symm
+    xcfg = LP_CONFIG.replace(linsolve="woodbury", matvec_dtype="bfloat16")
+    with Phase("generate-xl", 240) as ph:
+        rng = np.random.RandomState(XL_SEED)
+        xinsts = [ca.generate_cauction(rng, n_items=XL_ITEMS, n_bids=XL_BIDS)
+                  for _ in range(XL_BATCH)]
+        xprob = ca.make_problem(xinsts, device="cuda")
+        log(f"  {XL_BATCH} CA-({XL_ITEMS}, {XL_BIDS}) instances, E "
+            f"{tuple(xprob.E.shape)}, {xinsts[0][1].shape[0]} rows in the "
+            "first")
+        require(tuple(xprob.E.shape) == (XL_BATCH, 1664, 4096), "xl padding")
+    summary["generate_xl_s"] = ph.seconds
+    prob0 = xprob.replace(**{f: getattr(xprob, f)[:XL_BLOCK] for f in (
+        "b", "E", "f", "row_mask", "var_mask")})
+
+    with Phase("k3-check", 120) as ph:
+        k3_res, s0x, E16, k3_args, carry = k3_check(prob0, xcfg, lp,
+                                                    fused_stream)
+    summary["k3_check_s"] = ph.seconds
+    with Phase("k4-check", 60) as ph:
+        k4_res, Gp, v4 = k4_check(prob0, s0x, carry, symm)
+    summary["k4_check_s"] = ph.seconds
+
+    # --- the xl solve: counts from 0, read after it ------------------------
+    fused_stream.LAUNCHES = 0
+    symm.LAUNCHES = 0
+    with Phase("xl-solve", 300) as ph:
+        torch.cuda.reset_peak_memory_stats()
+        xst, iters = lp.solve_blocked(xprob, xcfg, block=XL_BLOCK,
+                                      window=XL_WINDOW,
+                                      max_iters=XL_MAX_ITERS, stream=True)
+        torch.cuda.synchronize()
+        xsolve_s = time.perf_counter() - ph.t0
+        xl_launches = {"K3": fused_stream.LAUNCHES, "K4": symm.LAUNCHES}
+        peak_solve = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        xsol, xobj, xinf = lp.select_solution(
+            xprob, lp.solution(xst), lp.solution_best(xst),
+            drop_rounds=XL_DROP, repair_rounds=XL_REPAIR,
+            swap_rounds=XL_SWAP)
+        torch.cuda.synchronize()
+        select_s = time.perf_counter() - ph.t0 - xsolve_s
+        peak_select = torch.cuda.max_memory_allocated()
+        x_mean = xobj.mean().item()
+        gap0 = (xobj[0].item() - XL_ORACLE_OBJ0) / abs(XL_ORACLE_OBJ0)
+        x_inf = int((xinf > 0).sum())
+        log(f"  xl solve: wall {xsolve_s:.2f} s, per-block iterations "
+            f"{iters}, done {int(xst.done.sum())}/{XL_BATCH}, launches "
+            f"{xl_launches}, peak memory {peak_solve / 2**30:.2f} GiB")
+        log(f"  select (drop {XL_DROP}, repair {XL_REPAIR}, swap {XL_SWAP}): "
+            f"{select_s:.2f} s, peak memory {peak_select / 2**30:.2f} GiB; "
+            f"mean obj {x_mean:.2f} (TPU record {XL_TPU_MEAN_OBJ}), obj0 "
+            f"{xobj[0].item():.2f}, gap0 vs CPU oracle {gap0:+.4%}, "
+            f"infeasible instances {x_inf}")
+        require(finite(xobj, xsol, xst.x), "xl: finite")
+        require(x_inf == 0, "xl: 0 infeasible")
+        require(xl_launches["K3"] > 0, f"xl path launched K3: {xl_launches}")
+        require(x_mean <= 0.9 * XL_TPU_MEAN_OBJ,
+                f"xl mean objective {x_mean:.1f} within 10% of "
+                f"{XL_TPU_MEAN_OBJ}")
+        split = stream_split(s0x, prob0, xcfg, E16, fused_stream)
+        log("  one 100-iteration window of the first block: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    summary.update(xl_solve_s=xsolve_s, xl_select_s=select_s,
+                   xl_iters=iters, xl_mean_obj=x_mean, xl_gap0=gap0,
+                   xl_peak_gib_solve=peak_solve / 2**30,
+                   xl_peak_gib_select=peak_select / 2**30, xl_split=split)
+
+    # --- a packed-symmetric window: counts from 0, read after it -----------
+    fused_stream.LAUNCHES = 0
+    symm.LAUNCHES = 0
+    with Phase("xl-symm", 120) as ph:
+        scfg = xcfg.replace(ginv_apply="packed-sym")
+        ws = fused_stream.lp_window_stream(s0x, prob0, scfg, XL_WINDOW,
+                                           skip_cvg_at=0, E_op=E16)
+        torch.cuda.synchronize()
+        symm_s = time.perf_counter() - ph.t0
+        sym_launches = {"K3": fused_stream.LAUNCHES, "K4": symm.LAUNCHES}
+        require(finite(ws.x, ws.z4), "xl-symm: finite")
+        require(sym_launches["K3"] > 0 and sym_launches["K4"] > 0,
+                f"packed-sym path launched K3 and K4: {sym_launches}")
+        ks = fused_stream.lp_window_stream(s0x, prob0, scfg, 20,
+                                           skip_cvg_at=0, E_op=E16)
+        kd = fused_stream.lp_window_stream(s0x, prob0, xcfg, 20,
+                                           skip_cvg_at=0, E_op=E16)
+        serrs = k1_errors(ks, kd, xcfg)
+        log(f"  packed-sym window: {ws.it} iterations in {symm_s:.2f} s, "
+            f"launches {sym_launches}; first 20 iterations vs the dense "
+            "apply, in x units: "
+            + " ".join(f"{f}={e[1]:.2e}" for f, e in serrs.items()))
+        over = k1_excess(serrs)
+        require(not over, f"packed-sym window: {over} over {K1_TOL:g}")
+    summary.update(xl_symm_s=symm_s, xl_symm_it=ws.it)
+
     with Phase("timing", 120) as ph:
         kernels = timings(prob, cfg, pcfg, packed, rows, lp, fused_lp,
                           fused_policy, launches, k1_res, k2_err)
+        kernels += xl_timings(k3_args, Gp, v4, s0x.ginv, fused_stream, symm,
+                              {"K3": xl_launches["K3"],
+                               "K4": sym_launches["K4"]}, k3_res, k4_res)
     summary["timing_s"] = ph.seconds
     summary["total_s"] = time.perf_counter() - T_START
     log("summary " + json.dumps(summary, default=str))
@@ -498,6 +837,60 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
          "bound_by": "operations" if k2_flops / PEAK_F32_FLOPS
          >= k2_bytes / PEAK_HBM_BYTES else "bytes",
          "library_ms": None},
+    ]
+
+
+def xl_timings(args, Gp, v, ginv, fused_stream, symm, launches, k3_res,
+               k4_res):
+    """K3 and K4 at the xl block's shapes, L2 cold before each call: K3
+    one sweep at (8, 1664, 4096) bf16; K4 one apply at (8, 1664) from the
+    91 packed blocks, its library yardstick the dense (8, 1664, 1664)
+    ``torch.bmm``."""
+    import torch
+    flush = torch.empty(256 * 2**20, dtype=torch.float32, device="cuda")
+    E = args[0]
+    B, m, n = E.shape
+    k3_ms = cuda_ms_cold(lambda: fused_stream.sweep_cuda(*args), 20, flush)
+    k3_plain_ms = cuda_ms_cold(lambda: fused_stream.sweep_plain(*args), 5,
+                               flush)
+    # each input read once, each output written once: E, M, 7 n-vectors,
+    # s; V, F, the 16 sums.  Per column and instance 4 m FMAs for the
+    # transpose products and 8 m for the forward ones.
+    k3_bytes = E.numel() * E.element_size() + sum(
+        t.numel() * 4 for t in args[1:10]) + 4 * B * (12 * n + 8 * m + 16)
+    k3_flops = 24.0 * m * n * B
+    k3_bound = max(k3_bytes / PEAK_HBM_BYTES, k3_flops / PEAK_F32_FLOPS)
+
+    k4_ms = cuda_ms_cold(lambda: symm.symm_matvec_cuda(Gp, v), 50, flush)
+    k4_plain_ms = cuda_ms_cold(lambda: symm.symm_matvec_plain(Gp, v), 10,
+                               flush)
+    k4_lib_ms = cuda_ms_cold(lambda: torch.bmm(ginv, v[..., None]), 50,
+                             flush)
+    L, T = Gp.shape[1], m // 128
+    k4_bytes = Gp.numel() * 4 + 2 * v.numel() * 4
+    k4_flops = 2.0 * B * 128 * 128 * (2 * (L - T) + T)
+    k4_bound = max(k4_bytes / PEAK_HBM_BYTES, k4_flops / PEAK_F32_FLOPS)
+    log(f"  K3 sweep (B={B}, m={m}, n={n}, bf16 E): {k3_ms:.4f} ms, plain "
+        f"{k3_plain_ms:.4f} ms, bound {k3_bound * 1e3:.4f} ms "
+        f"({k3_flops:.3e} flop, {k3_bytes:.3e} B)")
+    log(f"  K4 symm apply (B={B}, m={m}, L={L}): {k4_ms:.4f} ms, plain "
+        f"{k4_plain_ms:.4f} ms, dense bmm {k4_lib_ms:.4f} ms, bound "
+        f"{k4_bound * 1e3:.4f} ms ({k4_flops:.3e} flop, {k4_bytes:.3e} B)")
+    by = lambda fl, by_: "operations" if fl / PEAK_F32_FLOPS \
+        >= by_ / PEAK_HBM_BYTES else "bytes"
+    return [
+        {"name": "K3 stream_sweep", "route": "cuda",
+         "source": "lpbox_admm_tpu_torch/csrc/stream_sweep.cu",
+         "replaces": "lpbox_admm_tpu/ops/pallas_stream.py:75",
+         "launches": launches["K3"], "max_abs_err": k3_res["max_abs_err"],
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound * 1e3,
+         "bound_by": by(k3_flops, k3_bytes), "library_ms": None},
+        {"name": "K4 symm_matvec", "route": "cuda",
+         "source": "lpbox_admm_tpu_torch/csrc/symm.cu",
+         "replaces": "lpbox_admm_tpu/ops/pallas_symm.py:63",
+         "launches": launches["K4"], "max_abs_err": k4_res["max_abs_err"],
+         "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound * 1e3,
+         "bound_by": by(k4_flops, k4_bytes), "library_ms": k4_lib_ms},
     ]
 
 

@@ -7,6 +7,11 @@ LPboxADMMsolver.cpp):
 * ``init_state``        ~ ADMM_lp_iters_init        (:489-763)
 * ``step``              ~ one iteration of ADMM_lp_iters (:796-1068)
 * ``solve_window``      ~ an ADMM_lp_iters_l2f window with trajectory capture
+* ``solve``             ~ ADMM_lp_iters(0, max_iters) (:766), window-quantized
+* ``solve_blocked``     ~ the same per block of instances, each block
+                          dropped once done (host round-robin; the
+                          large CA rungs' single-stream sweep with
+                          ``stream=True``)
 * ``apply_fix``         ~ the early-fix problem reduction (:1124-1335)
 * ``solution`` / ``objective`` / ``infeasible_rows``
                         ~ get_x_sol (:1648), cal_obj (:1630), check_infeasible_l2f (:1593)
@@ -84,6 +89,18 @@ def _wb_ratio(cfg: SolverConfig) -> float:
     return 2.0
 
 
+def _factor_ratio(cfg: SolverConfig) -> float:
+    """``_wb_ratio`` at a place that factors G.  The port stores G^{-1}
+    in float32 only; the JAX package's bfloat16 storage option
+    (``ginv_dtype``) is not ported, so it is refused rather than
+    ignored."""
+    if cfg.ginv_dtype != "float32":
+        raise ValueError(
+            f"ginv_dtype={cfg.ginv_dtype!r}: the port stores G^-1 in "
+            "float32 only (bfloat16 storage is not ported)")
+    return _wb_ratio(cfg)
+
+
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Per-instance M @ v: (B, I, J) x (B, J) -> (B, I), float32."""
     return torch.bmm(M.float(), v[..., None])[..., 0]
@@ -108,8 +125,15 @@ def refresh_et_next(state: LpState, prob: LpProblem,
     return state.replace(et_next=_mtv(prob.E, w))
 
 
-def init_state(prob: LpProblem, cfg: SolverConfig) -> LpState:
-    """Initial state: x=1, z=0, y3 = f - E x (reference :550-727)."""
+def init_state(prob: LpProblem, cfg: SolverConfig,
+               gram: Optional[torch.Tensor] = None,
+               ginv: Optional[torch.Tensor] = None) -> LpState:
+    """Initial state: x=1, z=0, y3 = f - E x (reference :550-727).
+
+    ``gram``: optional precomputed (B, m, m) unshifted Gram ``E E^T``
+    (all columns free) for the Woodbury factorization; ``ginv``: an
+    optional fully precomputed (B, m, m) inverse of ``ratio I + E E^T``
+    (stored float32)."""
     B, n, m = prob.batch, prob.n, prob.m
     dt, dev = prob.b.dtype, prob.device
     free = prob.var_mask
@@ -122,7 +146,13 @@ def init_state(prob: LpProblem, cfg: SolverConfig) -> LpState:
     # feasible-incumbent tracking starts from +inf (x0 = 1 minimises b.x)
     best0 = torch.full((B,), _BEST_INIT, dtype=dt, device=dev) \
         if cfg.feasible_incumbent else cur_obj
-    ginv = woodbury.factorize(prob.E, free, _wb_ratio(cfg)).ginv
+    ratio = _factor_ratio(cfg)
+    if ginv is not None:
+        ginv = ginv.float()
+    elif gram is not None:
+        ginv = woodbury.factorize_from_gram(gram, ratio).ginv
+    else:
+        ginv = woodbury.factorize(prob.E, free, ratio).ginv
     return LpState(
         x=x, y1=x, y2=x, y3=y3, z1=zeros_n, z2=zeros_n, z4=z4,
         free=free, fixed_val=torch.zeros((B, n), dtype=dt, device=dev),
@@ -260,6 +290,81 @@ def solve_window(state: LpState, prob: LpProblem, cfg: SolverConfig,
     return state, (torch.stack(traj, dim=-1) if record else None)
 
 
+def solve(prob: LpProblem, cfg: SolverConfig,
+          max_iters: Optional[int] = None, window: int = 100) -> LpState:
+    """Plain full solve: windows of ``window`` iterations until every
+    instance is done or ``max_iters`` is reached (one host check per
+    window; the first iteration's y1/y2 stop is skipped, as in the
+    reference's ADMM_lp_iters(0, max_iters), :766)."""
+    if max_iters is None:
+        max_iters = cfg.max_iters
+    state = init_state(prob, cfg)
+    while state.it < max_iters and not bool(state.done.all()):
+        state, _ = solve_window(state, prob, cfg, window, record=False,
+                                skip_cvg_at=0)
+    return state
+
+
+def solve_blocked(prob: LpProblem, cfg: SolverConfig, block: int = 8,
+                  max_iters: Optional[int] = None, window: int = 500,
+                  stream: bool = False,
+                  gram: Optional[torch.Tensor] = None,
+                  ginv: Optional[torch.Tensor] = None
+                  ) -> Tuple[LpState, list]:
+    """Host-driven blocked solve with per-block early exit.
+
+    The batch is split into blocks of ``block`` instances that run
+    windows round-robin; a block is dropped once all its instances are
+    done or it reaches ``max_iters``, so finished blocks stop paying for
+    stragglers elsewhere.  ``stream=True`` runs each window through the
+    single-stream sweep (``ops.fused_stream.lp_window_stream``, K3), the
+    large CA rungs' path; otherwise ``solve_window``.  With
+    ``matvec_dtype="bfloat16"`` the sweep's E is cast to bfloat16 once
+    per solve.  Block slices are views of the batch (no copy of E).
+
+    Returns the merged state (``it`` = the largest over blocks) and the
+    per-block iteration counts.
+    """
+    if max_iters is None:
+        max_iters = cfg.max_iters
+    B = prob.batch
+    if B % block:
+        raise ValueError(f"batch {B} is not a multiple of block {block}")
+    E_op = None
+    if stream:
+        from ..ops import fused_stream
+        E_op = fused_stream.stream_operand(prob.E, cfg)
+    los = range(0, B, block)
+    fields = [f.name for f in dataclasses.fields(LpProblem)]
+    probs = [prob.replace(**{f: getattr(prob, f)[lo:lo + block]
+                             for f in fields}) for lo in los]
+    cut = lambda t, lo: None if t is None else t[lo:lo + block]
+    states = [init_state(p, cfg, gram=cut(gram, lo), ginv=cut(ginv, lo))
+              for p, lo in zip(probs, los)]
+    iters = [0] * len(probs)
+    live = set(range(len(probs)))
+    first = True
+    while live:
+        skip = 0 if first else None
+        for k in sorted(live):
+            if stream:
+                states[k] = fused_stream.lp_window_stream(
+                    states[k], probs[k], cfg, window, skip_cvg_at=skip,
+                    E_op=E_op[los[k]:los[k] + block])
+            else:
+                states[k], _ = solve_window(states[k], probs[k], cfg, window,
+                                            record=False, skip_cvg_at=skip)
+        first = False
+        for k in sorted(live):
+            iters[k] = states[k].it
+            if states[k].it >= max_iters or bool(states[k].done.all()):
+                live.discard(k)
+    merged = {f: (max(iters) if f == "it" else
+                  torch.cat([getattr(s, f) for s in states]))
+              for f in LpState.__dataclass_fields__}
+    return LpState(**merged), iters
+
+
 def apply_fix(state: LpState, prob: LpProblem, vec: torch.Tensor,
               cfg: SolverConfig, min_fix: Optional[int] = None) -> LpState:
     """Fix variables per decision vector ``vec`` (B, n): +1 fix to 1,
@@ -290,7 +395,7 @@ def apply_fix(state: LpState, prob: LpProblem, vec: torch.Tensor,
     done = state.done | (do & (empty | (x_free_norm < 1e-3)))
 
     ex = torch.where(do[:, None], _mv(prob.E, free_f * state.x), state.ex)
-    factor = woodbury.factorize(prob.E, free, _wb_ratio(cfg))
+    factor = woodbury.factorize(prob.E, free, _factor_ratio(cfg))
     ginv = torch.where(do[:, None, None], factor.ginv, state.ginv)
     ns = state.replace(
         free=free, fixed_val=fixed_val, f_eff=f_eff,
@@ -374,7 +479,7 @@ def compact(state: LpState, prob: LpProblem, cfg: SolverConfig,
         y3_2, z4_2 = rtake(y3_2), rtake(z4_2)
     prob2 = LpProblem(b=take(prob.b), E=E2, f=f2, row_mask=rmask2,
                       var_mask=free2)
-    ginv2 = woodbury.factorize(E2, free2, _wb_ratio(cfg)).ginv
+    ginv2 = woodbury.factorize(E2, free2, _factor_ratio(cfg)).ginv
     x2 = take(state.x)
     state2 = state.replace(
         x=x2, y1=take(state.y1), y2=take(state.y2), y3=y3_2, z4=z4_2,

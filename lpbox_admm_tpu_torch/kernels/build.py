@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into one
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into one
 shared library with a plain C interface, loaded with ctypes.  No
 PyTorch headers are included, so the build takes seconds.  The library
 lands in ``lpbox_admm_tpu_torch/_build/`` (git-ignored) under a name
@@ -25,8 +26,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v")
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 #: what the last build in this process did: seconds, command, ptxas report
 BUILD_INFO: Dict[str, object] = {}
@@ -37,7 +39,7 @@ def sources():
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in sorted(SRC_DIR.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -64,20 +66,43 @@ def build() -> Path:
         if BUILD_INFO.get("path") != str(lib):   # built by another process
             BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
         return lib
+    nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(lib.name + f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
-           *map(str, sources())]
+    tag = f"{os.getpid()}.tmp"
+    tmp = lib.with_name(f"{lib.name}.{tag}")
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]
+    cmds = [[nvcc, *COMPILE_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(o),
+             str(src)] for src, o in zip(sources(), objs)]
+    cmds.append([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)])
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds[:-1]]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+        results = [(c, p.returncode, out, err)
+                   for c, p, (out, err) in zip(cmds, procs, outs)]
+        if all(rc == 0 for _, rc, _, _ in results):
+            res = subprocess.run(cmds[-1], capture_output=True, text=True,
+                                 timeout=300)
+            results.append((cmds[-1], res.returncode, res.stdout,
+                            res.stderr))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for o in objs:
+            o.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for c, rc, out, err in results:
+        if rc != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(c)}\n"
+                               f"{out}\n{err}")
     os.replace(tmp, lib)
     BUILD_INFO.update(path=str(lib), seconds=secs, cached=False,
-                      command=" ".join(cmd), ptxas=res.stderr)
+                      command="\n".join(" ".join(c) for c in cmds),
+                      ptxas="".join(err for _, _, _, err in results))
     return lib
 
 
@@ -87,14 +112,18 @@ def library() -> ctypes.CDLL:
     Each launcher takes a pointer to its argument struct and the CUDA
     stream, and returns the ``cudaError_t`` of the launch."""
     lib = ctypes.CDLL(str(build()))
-    for name in ("lpbox_lp_window", "lpbox_policy_forward"):
+    for name in ("lpbox_lp_window", "lpbox_policy_forward",
+                 "lpbox_stream_sweep", "lpbox_symm_matvec"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in ("lpbox_lp_window_args_size", "lpbox_policy_args_size"):
+    for name in ("lpbox_lp_window_args_size", "lpbox_policy_args_size",
+                 "lpbox_stream_sweep_args_size", "lpbox_symm_args_size"):
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ctypes.c_int
+    lib.lpbox_stream_sweep_smem.argtypes = [ctypes.c_int] * 3
+    lib.lpbox_stream_sweep_smem.restype = ctypes.c_int
     lib.lpbox_error_string.argtypes = [ctypes.c_int]
     lib.lpbox_error_string.restype = ctypes.c_char_p
     return lib

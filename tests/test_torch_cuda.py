@@ -1,4 +1,4 @@
-"""K1 and K2 against their plain versions on a CUDA device.
+"""K1 to K4 against their plain versions on a CUDA device.
 
 Marked ``cuda``: skipped where there is no card (``torch.cuda`` is
 asked inside the fixture, never at import).  On the card:
@@ -9,7 +9,11 @@ in ``chip_smoke.py``: 1e-3 absolute on x, its copies y1/y2/y3, E x and
 the incumbent; 1e-3 on the duals divided by gamma*rho of the window's
 last iteration (the factor by which a dual step scales an error of x);
 1e-3 relative to max(1, |ref|) per instance on the objectives; 1e-4
-absolute on the sigmoids.
+absolute on the sigmoids.  One K3 sweep: 1e-4 relative to
+max(1, max |ref|) per output (f32 sums over m and n in another order);
+K4: 1e-5 relative to max |ref|.  K3 and K4 sum in a fixed order without
+atomics, so a repeat launch, and K3 on bf16 and on f32 E (0/1 entries),
+give the same bits.
 """
 
 from pathlib import Path
@@ -22,7 +26,7 @@ from lpbox_admm_tpu_torch.adapters import ca
 from lpbox_admm_tpu_torch.config import LP_CONFIG, PolicyConfig
 from lpbox_admm_tpu_torch.core import lp
 from lpbox_admm_tpu_torch.models import fused_policy
-from lpbox_admm_tpu_torch.ops import fused_lp, woodbury
+from lpbox_admm_tpu_torch.ops import fused_lp, fused_stream, symm, woodbury
 from lpbox_admm_tpu_torch.ops.schedule import gamma_at, rho_at
 from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
 
@@ -117,3 +121,74 @@ def test_k2_matches_plain(cuda, mode):
                                           fused_policy.stride_of(pcfg))
     assert fused_policy.LAUNCHES == before + 1
     assert (sk - sp).abs().max().item() <= 1e-4
+
+
+def k3_start(prob):
+    """A carry at iteration 24 (rho steps at the next iteration)."""
+    s, _ = lp.solve_window(lp.init_state(prob, CFG), prob, CFG, 24,
+                           record=False, skip_cvg_at=0)
+    return s, fused_stream._bootstrap(s, prob, CFG)
+
+
+def k3_args(prob, s, carry, dtype):
+    E = fused_stream.stream_operand(prob.E, CFG.replace(matvec_dtype=dtype))
+    return fused_stream._sweep_args(carry, E, prob, s.free.float(), CFG)
+
+
+@pytest.fixture(scope="module")
+def prob500(cuda):
+    """Two CA-500 instances, (256, 512): two column chunks per instance."""
+    rng = np.random.RandomState(2207)
+    insts = [ca.generate_cauction(rng, n_items=100, n_bids=500)
+             for _ in range(2)]
+    return ca.make_problem(insts, device=cuda)
+
+
+@pytest.mark.parametrize("shape", ["ca60", "ca500"])
+def test_k3_matches_plain(prob, prob500, shape):
+    p = prob if shape == "ca60" else prob500
+    s, carry = k3_start(p)
+    before = fused_stream.LAUNCHES
+    k = fused_stream.sweep_cuda(*k3_args(p, s, carry, "bfloat16"))
+    assert fused_stream.LAUNCHES == before + 1
+    ref = fused_stream.sweep_plain(*k3_args(p, s, carry, "float32"))
+    for name, a, b in zip(ref._fields, k, ref):
+        err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        assert err <= 1e-4, (name, err)
+    again = fused_stream.sweep_cuda(*k3_args(p, s, carry, "bfloat16"))
+    f32 = fused_stream.sweep_cuda(*k3_args(p, s, carry, "float32"))
+    for a, b, c in zip(k, again, f32):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_k3_window_matches_plain(prob):
+    s0 = lp.init_state(prob, CFG)
+    cfg = CFG.replace(matvec_dtype="bfloat16")
+    before = fused_stream.LAUNCHES
+    k = fused_stream.lp_window_stream(s0, prob, cfg, 20, skip_cvg_at=0)
+    p = fused_stream.lp_window_stream_plain(s0, prob, cfg, 20, skip_cvg_at=0)
+    assert fused_stream.LAUNCHES == before + 20 and k.it == p.it == 20
+    for f in ("x", "y1", "y2", "y3", "ex", "best_sol"):
+        assert (getattr(k, f) - getattr(p, f)).abs().max().item() <= 1e-3, f
+    dual_unit = gamma_at(19, CFG) * rho_at(19, CFG)
+    for f in ("z1", "z2", "z4"):
+        d = (getattr(k, f) - getattr(p, f)).abs().max().item()
+        assert d / dual_unit <= 1e-3, f
+    assert bool((k.done == p.done).all())
+
+
+@pytest.mark.parametrize("m", [384, 1664])
+def test_k4_matches_plain(cuda, m):
+    g = torch.Generator(cuda).manual_seed(m)
+    A = torch.randn(2, m, m, device=cuda, generator=g) / m ** 0.5
+    G = A @ A.transpose(1, 2) + torch.eye(m, device=cuda)
+    v = torch.randn(2, m, device=cuda, generator=g)
+    Gp = symm.pack_tril(G)
+    before = symm.LAUNCHES
+    y = symm.symm_matvec(Gp, v)
+    assert symm.LAUNCHES == before + 1
+    for ref in (symm.symm_matvec_plain(Gp, v),
+                torch.bmm(G, v[..., None])[..., 0]):
+        err = (y - ref).abs().max().item() / ref.abs().max().item()
+        assert err <= 1e-5, err
+    assert torch.equal(y, symm.symm_matvec_cuda(Gp, v))

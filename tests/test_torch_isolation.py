@@ -110,6 +110,22 @@ def test_kernel_wrappers_refuse_other_devices():
         fused_policy.policy_scores_fused(pk, torch.zeros(3, 100,
                                                          device="meta"),
                                          PolicyConfig(net="mlp"))
+    from lpbox_admm_tpu_torch.ops import fused_stream, symm
+    carry = fused_stream._bootstrap(s, p, cfg)
+    args = fused_stream._sweep_args(carry, p.E, p, s.free.float(), cfg)
+    with pytest.raises(ValueError, match="device"):
+        fused_stream.sweep_cuda(*(meta(a) for a in args))
+    with pytest.raises(ValueError, match="device"):
+        fused_stream.sweep(*(meta(a) for a in args))
+    with pytest.raises(ValueError, match="device"):
+        fused_stream.lp_window_stream(sm, pm, cfg, 2)
+    Gp = symm.pack_tril(torch.zeros(1, 256, 256))
+    v = torch.zeros(1, 256)
+    for fn in (symm.symm_matvec_cuda, symm.symm_matvec):
+        with pytest.raises(ValueError, match="device"):
+            fn(meta(Gp), meta(v))
+    with pytest.raises(ValueError, match="device"):
+        symm.symm_matvec_cuda(Gp, v)
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
@@ -122,7 +138,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build()
-    assert [p.name for p in build.sources()] == ["lp_window.cu", "policy.cu"]
+    assert [p.name for p in build.sources()] == [
+        "lp_window.cu", "policy.cu", "stream_sweep.cu", "symm.cu"]
 
 
 def _run_smoke(cwd):

@@ -16,6 +16,7 @@
   both packages).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,12 +24,12 @@ import torch
 from lpbox_admm_tpu.config import LP_CONFIG as JLP
 from lpbox_admm_tpu.core import lp as jlp
 from lpbox_admm_tpu.ops import pallas_lp, woodbury as jwb
-from lpbox_admm_tpu.ops.schedule import gamma_at, rho_at
 from lpbox_admm_tpu_torch.config import LP_CONFIG as TLP
 from lpbox_admm_tpu_torch.core import lp as tlp
 from lpbox_admm_tpu_torch.ops import fused_lp, woodbury as twb
 
-from torch_port_util import ca_instances, np_of, problems, torch_state
+from torch_port_util import (ca_instances, np_of, problems, rel,
+                             step_scales, torch_state)
 
 CFG_J = JLP.replace(linsolve="woodbury")
 CFG_T = TLP.replace(linsolve="woodbury")
@@ -37,11 +38,6 @@ CFG_T = TLP.replace(linsolve="woodbury")
 @pytest.fixture(scope="module")
 def probs():
     return problems(ca_instances(7, 4))
-
-
-def rel(a, b, scale=0.0):
-    a, b = np_of(a).astype(np.float64), np_of(b).astype(np.float64)
-    return np.abs(a - b).max() / max(1.0, np.abs(b).max(), scale)
 
 
 def test_init_state_and_factors(probs):
@@ -63,24 +59,6 @@ def test_init_state_and_factors(probs):
         assert np.abs(np_of(a) - b).max() <= 1e-4 * np.abs(b).max()
 
 
-def _step_scales(js, js1, jp):
-    """Magnitudes of the terms one step's fields are computed from."""
-    it = js.it
-    rho = float(rho_at(it, CFG_J))
-    gr = float(gamma_at(it, CFG_J)) * rho
-    free = np.asarray(js.free, np.float64)
-    rhs = free * (rho * np.asarray(js1.y1) + rho * np.asarray(js1.y2)
-                  - (np.asarray(jp.b) + np.asarray(js.z1)
-                     + np.asarray(js.z2)) + np.asarray(js.et_next))
-    erhs = np.einsum("bmn,bn->bm", np.asarray(jp.E, np.float64), rhs)
-    s_x = np.abs(rhs).max() / (2 * rho)
-    s_ex = np.abs(erhs).max() / (2 * rho)
-    s_obj = s_x * np.abs(np.asarray(jp.b)).sum(-1).max()
-    return {"x": s_x, "best_sol": s_x, "x_prev": s_x, "ex": s_ex,
-            "z1": gr * s_x, "z2": gr * s_x, "z4": gr * s_ex,
-            "obj_ring": s_obj}
-
-
 @pytest.mark.parametrize("n_steps", [1, 2])
 def test_step_matches_jax(probs, n_steps):
     jp, tp = probs
@@ -89,7 +67,7 @@ def test_step_matches_jax(probs, n_steps):
         js = jlp.step(js, jp, CFG_J, skip_cvg_at=0)
     js1 = jlp.step(js, jp, CFG_J, skip_cvg_at=0)
     ts1 = tlp.step(torch_state(js), tp, CFG_T, skip_cvg_at=0)
-    scales = _step_scales(js, js1, jp)
+    scales = step_scales(js, js1, jp, CFG_J)
     assert ts1.it == int(js1.it)
     for f in ("x", "y1", "y2", "y3", "z1", "z2", "z4", "ex", "et_next",
               "obj_ring", "cur_obj", "best_bin_obj", "best_sol", "x_prev"):
@@ -277,3 +255,44 @@ def test_woodbury_refuses_other_modes(probs):
         tlp.init_state(tp, TLP)                      # linsolve="cg"
     with pytest.raises(ValueError):
         tlp.init_state(tp, CFG_T.replace(rho_upper_limit=100.0))
+
+
+def test_ginv_dtype_bf16_is_refused_where_jax_stores_it(probs):
+    """The JAX package stores G^-1 in bfloat16 under ginv_dtype; the port
+    stores float32 only and refuses the setting wherever it factors."""
+    jp, tp = probs
+    bad_j, bad_t = (CFG_J.replace(ginv_dtype="bfloat16"),
+                    CFG_T.replace(ginv_dtype="bfloat16"))
+    assert jlp.init_state(jp, bad_j).ginv.dtype == jnp.bfloat16
+    with pytest.raises(ValueError, match="ginv_dtype"):
+        tlp.init_state(tp, bad_t)
+    ts = tlp.init_state(tp, CFG_T)
+    vec = torch.where(torch.arange(tp.n) < 8, 0.0, -1.0).expand(tp.batch,
+                                                               tp.n)
+    with pytest.raises(ValueError, match="ginv_dtype"):
+        tlp.apply_fix(ts, tp, vec, bad_t, min_fix=0)
+    with pytest.raises(ValueError, match="ginv_dtype"):
+        tlp.compact(ts, tp, bad_t, tp.n)
+
+
+def test_init_state_precomputed_factors_match_jax(probs):
+    """``init_state(gram=...)`` and ``init_state(ginv=...)`` as in the JAX
+    package: the same state as factoring in place."""
+    jp, tp = probs
+    E = np.asarray(jp.E, np.float64) * np.asarray(jp.var_mask)[:, None, :]
+    gram = np.einsum("bmn,bkn->bmk", E, E).astype(np.float32)
+    ginv = np.linalg.inv(gram.astype(np.float64)
+                         + 2.0 * np.eye(gram.shape[-1])).astype(np.float32)
+    base = tlp.init_state(tp, CFG_T)
+    for kw in ({"gram": gram}, {"ginv": ginv}):
+        js = jlp.init_state(jp, CFG_J, **{k: jnp.asarray(v)
+                                          for k, v in kw.items()})
+        ts = tlp.init_state(tp, CFG_T, **{k: torch.from_numpy(v)
+                                          for k, v in kw.items()})
+        assert ts.ginv.dtype == torch.float32
+        g = np.asarray(js.ginv)
+        assert np.abs(np_of(ts.ginv) - g).max() <= 1e-4 * np.abs(g).max()
+        assert np.abs(np_of(ts.ginv - base.ginv)).max() \
+            <= 1e-4 * np.abs(g).max()
+        for f in ("x", "y3", "ex", "et_next", "best_bin_obj"):
+            assert rel(getattr(ts, f), getattr(js, f)) <= 1e-6, f

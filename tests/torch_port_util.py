@@ -85,3 +85,67 @@ def port_policy(variables, net, pcfg):
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = {net: str(ROOT / "checkpoints" / f"ca500_{net}" / "checkpoint"
                  / "best_checkpoint.npz") for net in ("mha", "mlp")}
+
+
+def torch_carry(jcarry):
+    """A JAX ``pallas_stream.StreamCarry`` as the port's (CPU tensors)."""
+    from lpbox_admm_tpu_torch.ops import fused_stream
+    kw = {f: torch.from_numpy(np.array(getattr(jcarry, f)))
+          for f in fused_stream.StreamCarry._fields if f != "state"}
+    return fused_stream.StreamCarry(state=torch_state(jcarry.state), **kw)
+
+
+#: solver-state fields held absolutely (in [0, 1] or O(1) sums of them),
+#: the duals, and the objectives
+STATE_ABS = ("x", "y1", "y2", "y3", "ex")
+STATE_DUALS = ("z1", "z2", "z4")
+STATE_OBJS = ("cur_obj", "best_bin_obj")
+
+
+def state_errors(got, ref, cfg):
+    """Per field, the error of the port's state ``got`` against ``ref``
+    (either package's state) in the units of x: absolute for x and its
+    copies, duals divided by gamma*rho of the last iteration run (the
+    factor by which a dual step scales an error of x), objectives
+    relative to max(1, |ref|) per instance."""
+    from lpbox_admm_tpu_torch.ops.schedule import gamma_at, rho_at
+    last = max(int(ref.it) - 1, 0)
+    unit = gamma_at(last, cfg) * rho_at(last, cfg)
+    out = {}
+    for f in STATE_ABS + STATE_DUALS + STATE_OBJS:
+        a = np_of(getattr(got, f)).astype(np.float64)
+        b = np_of(getattr(ref, f)).astype(np.float64)
+        d = np.abs(a - b)
+        if f in STATE_DUALS:
+            d = d / unit
+        elif f in STATE_OBJS:
+            d = d / np.maximum(1.0, np.abs(b))
+        out[f] = float(d.max())
+    return out
+
+
+def step_scales(js, js1, jp, cfg):
+    """Magnitudes of the terms one step's fields are computed from (the
+    x-update cancels rhs against E^T u, so its rounding error scales with
+    |rhs| / 2 rho, not with |x|): JAX states before and after the step."""
+    from lpbox_admm_tpu.ops.schedule import gamma_at, rho_at
+    it = js.it
+    rho = float(rho_at(it, cfg))
+    gr = float(gamma_at(it, cfg)) * rho
+    free = np.asarray(js.free, np.float64)
+    rhs = free * (rho * np.asarray(js1.y1) + rho * np.asarray(js1.y2)
+                  - (np.asarray(jp.b) + np.asarray(js.z1)
+                     + np.asarray(js.z2)) + np.asarray(js.et_next))
+    erhs = np.einsum("bmn,bn->bm", np.asarray(jp.E, np.float64), rhs)
+    s_x = np.abs(rhs).max() / (2 * rho)
+    s_ex = np.abs(erhs).max() / (2 * rho)
+    s_obj = s_x * np.abs(np.asarray(jp.b)).sum(-1).max()
+    return {"x": s_x, "best_sol": s_x, "x_prev": s_x, "ex": s_ex,
+            "z1": gr * s_x, "z2": gr * s_x, "z4": gr * s_ex,
+            "obj_ring": s_obj}
+
+
+def rel(a, b, scale=0.0):
+    """max |a - b| over max(1, max |b|, scale)."""
+    a, b = np_of(a).astype(np.float64), np_of(b).astype(np.float64)
+    return np.abs(a - b).max() / max(1.0, np.abs(b).max(), scale)
