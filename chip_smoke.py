@@ -12,27 +12,42 @@ operating point of the JAX package's bench (fix confidence 0.98,
 2-window streaks, damage gate 0.25, 3 policy windows of 100, rho boost
 5000, max_iter 10000).
 
+The batched-matvec probe (``lpbox_admm_tpu_torch.scripts.probe_dot``,
+the port of the JAX package's ``scripts/probe_dot.py``): its three
+formulations P1-P3 at (8, 256, 256) through the entry point's own
+functions.
+
 Then the large-rung path: the reference's xl CA instance (800 items x
 4000 bids), 32 instances padded to (m, n) = (1664, 4096), solved by the
 blocked single-stream solve (``core.lp.solve_blocked(stream=True)``,
 bf16 E, blocks of 8, windows of 500, 9000 iterations) with K3 the sweep
-and, on the packed-symmetric G^{-1} route, K4.
+and, on the packed-symmetric G^{-1} route, K4; and by
+``l2f_solve_compact`` at the CA-500 operating point, whose policy phase
+records with ``core.lp`` windows (K1 cannot hold that shape) and whose
+tail runs in K1 when the compacted bucket fits it.
 
 Phases, cheapest first, each under its own deadline and a watchdog that
 turns a hang into a traceback and a non-zero exit: device, build (one
 nvcc process per source, started together), K1 (with planted faults
 that its limits must catch) and K2 against their plain PyTorch versions
-on the card, the plain solve, the l2f solve, K1's exit for done
-instances from the plain solve's end state, the xl instances, K3 (with
-two planted faults) and K4 against their plain versions on the first
-block of 8, the xl solve, a packed-symmetric window, kernel timings;
-the whole script under 600 s.  Fails on a build or launch error, a
-kernel/plain disagreement, a non-finite value, an infeasible instance, a
-kernel that its path did not launch, an l2f mean objective gap above +2%
-against the plain solve, or an xl mean objective more than 10% worse
-than the JAX package's TPU record.  Prints one progress line per phase,
-a JSON ``kernels`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+on the card, P1-P3 against theirs and the float64 einsum (with a
+planted fault) and the probe's entry point, the plain solve, the l2f
+solve, K1's exit for done instances from the plain solve's end state,
+the xl instances, K3 (with two planted faults) and K4 against their
+plain versions on the first block of 8, the xl solve, a packed-symmetric
+window, the xl l2f solve, K2 and K1 against their plain versions on the
+operands the xl l2f solve gave them (its first policy window's 131 072
+trajectory rows; the tail's start state in its compacted bucket, with a
+planted fault), kernel timings (K1 also at that bucket); the whole
+script under 600 s.
+Fails on a build or launch error, a kernel/plain disagreement, a
+non-finite value, an infeasible instance, a kernel that its path did not
+launch, an l2f mean objective gap above +2% against the plain solve, an
+xl mean objective more than 10% worse than the JAX package's TPU record,
+or an xl l2f mean objective more than 10% worse than the xl plain
+solve's.  Prints one progress line per phase, a JSON ``kernels`` line,
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 
 Needs a CUDA device: without one it exits non-zero at once.  It imports
 only the port, torch, numpy and the standard library, and writes
@@ -76,6 +91,14 @@ K3_TOL = 1e-4
 # K4 against its plain version and the dense product: 1e-5 (sums over
 # 1664 terms in another order; the scale is stated in k4_check).
 K4_TOL = 1e-5
+# P1-P3 against their plain versions and the float64 einsum: 1e-5 of
+# max |ref| (f32 sums of 256 products in another order).
+PROBE_TOL = 1e-5
+# The xl l2f solve, at the CA-500 operating point: its mean selected
+# objective no more than 10% worse than the xl plain solve's (a wiring
+# check, as the xl plain limit is: a wrong fix sign or mapping lands far
+# beyond it).
+XL_L2F_GAP = 0.10
 
 T_START = time.perf_counter()
 
@@ -153,6 +176,31 @@ def finite(*ts):
     return all(bool(torch.isfinite(t.float()).all()) for t in ts)
 
 
+class FirstCall:
+    """Inside a ``with`` block, ``module.name`` is wrapped so that the
+    arguments of its first call are kept in ``args`` (positional) and
+    ``kwargs``; every call goes through to the function unchanged, so
+    the path and its launch counts are as without the wrapper."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.args = self.kwargs = None
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            if self.args is None:
+                self.args, self.kwargs = args, kwargs
+            return self.real(*args, **kwargs)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        setattr(self.module, self.name, self.real)
+        return False
+
+
 # K1 against its plain version: every state field is held to K1_TOL in
 # the units of x.  O(1) fields (x in [0, 1], its copies, E x, the
 # incumbent) absolutely; the duals divided by gamma*rho of the window's
@@ -193,6 +241,15 @@ def k1_excess(errs):
     return {f: v for f, (_, v) in errs.items() if not v <= K1_TOL}
 
 
+def k1_planted(name, s_f, s_p, cfg):
+    """A planted fault must cross the limit the sound run meets."""
+    over = k1_excess(k1_errors(s_f, s_p, cfg))
+    log(f"  K1 planted fault {name}: over {K1_TOL:g} "
+        + " ".join(f"{f}={v:.2e}" for f, v in over.items()))
+    require(bool(over), f"K1 limit {K1_TOL:g} misses the planted fault "
+            f"{name}")
+
+
 def k1_checks(tp, cfg, fused_lp, lp, woodbury):
     """K1 against its plain version on the card at the main path's
     shapes: the 128-instance batch, m side and n side at the tail's
@@ -202,7 +259,7 @@ def k1_checks(tp, cfg, fused_lp, lp, woodbury):
     path)."""
     res = {}
 
-    def compare(name, s_k, s_p, c=cfg):
+    def compare(name, s_k, s_p, c=cfg, quiet=False):
         errs = k1_errors(s_k, s_p, c)
         require(finite(*(getattr(s_k, f) for f in errs)),
                 f"K1 {name}: finite")
@@ -210,36 +267,30 @@ def k1_checks(tp, cfg, fused_lp, lp, woodbury):
         require(bool((s_k.obj_count == s_p.obj_count).all()),
                 f"K1 {name}: objective counts")
         over = k1_excess(errs)
-        log(f"  K1 {name}: abs err "
-            + " ".join(f"{f}={e[0]:.2e}" for f, e in errs.items())
-            + "; in x units "
-            + " ".join(f"{f}={errs[f][1]:.2e}" for f in K1_DUALS + K1_OBJS)
-            + f"; over {K1_TOL:g}: {over or 'none'}")
+        if not quiet or over:
+            log(f"  K1 {name}: abs err "
+                + " ".join(f"{f}={e[0]:.2e}" for f, e in errs.items())
+                + "; in x units "
+                + " ".join(f"{f}={errs[f][1]:.2e}" for f in K1_DUALS
+                           + K1_OBJS)
+                + f"; over {K1_TOL:g}: {over or 'none'}")
         require(not over, f"K1 {name}: {over} over {K1_TOL:g}")
         res[name] = {"max_abs_err_x": max(errs[f][0] for f in K1_ABS),
                      "max_err_x_units": max(e[1] for e in errs.values())}
         return errs
-
-    def planted(name, s_f, s_p, c):
-        """A planted fault must cross the limit the sound run meets."""
-        over = k1_excess(k1_errors(s_f, s_p, c))
-        log(f"  K1 planted fault {name}: over {K1_TOL:g} "
-            + " ".join(f"{f}={v:.2e}" for f, v in over.items()))
-        require(bool(over), f"K1 limit {K1_TOL:g} misses the planted "
-                f"fault {name}")
 
     s0 = lp.init_state(tp, cfg)
     p1 = fused_lp.lp_window_plain(s0, tp, cfg, 1, skip_cvg_at=0)
     compare("mside-1it", fused_lp.lp_window_fused(s0, tp, cfg, 1,
                                                   skip_cvg_at=0), p1)
     step = cfg.rho_change_step
-    planted("rho of the next schedule step",
-            fused_lp.lp_window_fused(s0.replace(it=step), tp, cfg, 1,
-                                     skip_cvg_at=step), p1, cfg)
-    planted("gamma 0.1% high",
-            fused_lp.lp_window_fused(s0, tp,
-                                     cfg.replace(gamma0=cfg.gamma0 * 1.001),
-                                     1, skip_cvg_at=0), p1, cfg)
+    k1_planted("rho of the next schedule step",
+               fused_lp.lp_window_fused(s0.replace(it=step), tp, cfg, 1,
+                                        skip_cvg_at=step), p1, cfg)
+    k1_planted("gamma 0.1% high",
+               fused_lp.lp_window_fused(s0, tp,
+                                        cfg.replace(gamma0=cfg.gamma0 * 1.001),
+                                        1, skip_cvg_at=0), p1, cfg)
     p20 = fused_lp.lp_window_plain(s0, tp, cfg, 20, skip_cvg_at=0)
     for name, c in (("mside-20it", cfg),
                     ("mside-20it-bf16E", cfg.replace(matvec_dtype="bfloat16"))):
@@ -314,6 +365,79 @@ def k1_done_check(st, prob, cfg, fused_lp, compare):
                  if not bool((getattr(k, f)[d] == v[d]).all())]
         require(not moved, f"{name}: done instances changed {moved}")
     return int(d.sum())
+
+
+def k2_check(fused_policy, packed, rows, pcfg, l2f, model=None):
+    """K2 against its plain version (and the torch module, given one) on
+    ``rows`` trajectory rows; returns the largest absolute error."""
+    sk = fused_policy.policy_scores_fused(packed, rows, pcfg)
+    sp = fused_policy.policy_scores_plain(packed, rows, pcfg.chunk_dim)
+    k2_err = (sk - sp).abs().max().item()
+    vs_module = ""
+    if model is not None:
+        sm = l2f.policy_scores(model, rows, pcfg)
+        vs_module = f", vs module {(sk - sm).abs().max().item():.3e}"
+    log(f"  K2 on {rows.shape[0]} trajectory rows: max abs err vs plain "
+        f"{k2_err:.3e} (tol {K2_TOL:g}){vs_module}")
+    require(finite(sk) and k2_err <= K2_TOL,
+            f"K2 on {rows.shape[0]} rows: error {k2_err:.3e}")
+    return k2_err
+
+
+def xl_tail_k1_check(st, prob, cfg, nfactor, fused_lp, compare, W=20):
+    """K1 against its plain version at the xl l2f tail's compacted bucket,
+    from the state the path handed K1 (after compaction and the rho
+    fast-forward): one iteration, the planted fault of rho of the next
+    schedule step that the limit must catch, and a recorded W-iteration
+    launch held iteration by iteration.  From this state the iteration
+    amplifies a difference by two orders of magnitude in 20 steps (the
+    plain version run on from the kernel's and from its own state after
+    one iteration, logged with the straight W-iteration comparison), so
+    the plain version runs each iteration from the kernel's own state (a
+    shorter launch from the same start); its trajectory slot and every
+    state field are compared, over iterations that include incumbent
+    ones."""
+    B, m, n = prob.E.shape
+    side = "nside" if nfactor is not None else "mside"
+    fused = lambda s, w, **kw: fused_lp.lp_window_fused(
+        s, prob, cfg, w, nfactor=nfactor, **kw)
+    plain = lambda s, w, **kw: fused_lp.lp_window_plain(
+        s, prob, cfg, w, nfactor=nfactor, **kw)
+    log(f"  K1 at the xl tail bucket: ({B}, {m}, {n}) {side}, it {st.it}, "
+        f"{int(st.done.sum())} done")
+    p1 = plain(st, 1)
+    compare(f"xl-tail-{side}-1it", fused(st, 1), p1, cfg)
+    nxt = (st.it // cfg.rho_change_step + 1) * cfg.rho_change_step
+    k1_planted("xl tail: rho of the next schedule step",
+               fused(st.replace(it=nxt), 1), p1, cfg)
+
+    _, tk = fused(st, W, record=True)
+    worst, slot_errs = {}, []
+    for t in range(W):
+        s_t = st if t == 0 else fused(st, t)
+        if t:
+            require(bool((tk[..., t - 1] == s_t.x).all()),
+                    f"K1 xl tail: slot {t - 1} is not the kernel's state "
+                    f"after {t} iterations")
+        p, tpl = plain(s_t, 1, record=True)
+        slot_errs.append((tk[..., t] - tpl[..., 0]).abs().max().item())
+        require(slot_errs[-1] <= K1_TOL,
+                f"K1 xl tail slot {t}: {slot_errs[-1]:.3e}")
+        for f, e in compare(f"xl-tail-{side}-it{t}", fused(s_t, 1), p, cfg,
+                            quiet=True).items():
+            worst[f] = max(worst.get(f, 0.0), e[1])
+    log(f"  K1 xl tail, {W} iterations each from the kernel's state: "
+        f"trajectory slots max abs err {max(slot_errs):.2e}; state in x "
+        "units, worst over the iterations: "
+        + " ".join(f"{f}={e:.2e}" for f, e in worst.items()))
+    amp = k1_errors(plain(fused(st, 1), W - 1), plain(p1, W - 1), cfg)
+    straight = k1_errors(fused(st, W), plain(st, W), cfg)
+    log(f"  K1 xl tail, not held: the kernel's and the plain version's "
+        f"states after 1 iteration, each run on {W - 1} iterations by the "
+        "plain version, in x units: "
+        + " ".join(f"{f}={e[1]:.2e}" for f, e in amp.items())
+        + f"; one {W}-iteration launch against the plain version: "
+        + " ".join(f"{f}={e[1]:.2e}" for f, e in straight.items()))
 
 
 def cuda_ms_cold(fn, reps, flush):
@@ -463,6 +587,42 @@ def k4_check(prob0, s0, carry, symm):
     return {"max_abs_err": max_abs, "errs": errs}, Gp, vecs["E rhs"]
 
 
+def probe_check(probe_dot):
+    """P1-P3 at the probe's shape (8, 256, 256) against their plain
+    versions and the float64 einsum, to PROBE_TOL of max |ref|; a repeat
+    launch bit for bit; and a planted fault the limit must catch: v with
+    one entry raised by 1e-3 of max |v| (which moves a row of y by about
+    1.4e-5 of max |ref|).  Returns the largest absolute errors against
+    the plain versions and the card's operands."""
+    import torch
+    E_np, v_np = probe_dot.make_inputs()
+    E = torch.from_numpy(E_np).cuda()
+    v = torch.from_numpy(v_np).cuda()
+    want = torch.einsum("bmn,bn->bm", E.double(), v.double())
+    scale = want.abs().max().item()
+    v_bad = v.clone()
+    v_bad[0, 0] += 1e-3 * v.abs().max()
+    errs = {}
+    for name in probe_dot.NAMES:
+        y = probe_dot.launch(name, E, v)
+        plain = probe_dot.PLAIN[name](E, v)
+        e_plain = (y - plain).abs().max().item()
+        e_ref = (y.double() - want).abs().max().item()
+        bad = (probe_dot.launch(name, E, v_bad) - plain).abs().max().item()
+        log(f"  {name}: max abs err vs plain {e_plain:.3e}, vs f64 einsum "
+            f"{e_ref:.3e} (limit {PROBE_TOL * scale:.3e}); planted fault "
+            f"{bad:.3e}")
+        require(finite(y), f"{name}: finite")
+        require(max(e_plain, e_ref) <= PROBE_TOL * scale,
+                f"{name} over {PROBE_TOL:g} of max |ref|")
+        require(bad > PROBE_TOL * scale,
+                f"{name}: limit misses the planted fault")
+        require(torch.equal(y, probe_dot.launch(name, E, v)),
+                f"{name}: repeat launch, same bits")
+        errs[name] = e_plain
+    return errs, E, v
+
+
 def stream_split(s0, prob0, cfg, E16, fused_stream, W=100):
     """One window of W iterations from the solve's start, run as
     ``lp_window_stream`` runs it, with CUDA events around each sweep (K3)
@@ -589,15 +749,22 @@ def main():
     model = load_policy(CKPT, device="cuda")
     packed = fused_policy.pack_policy_weights(model)
     with Phase("k2-check", 60) as ph:
-        sk = fused_policy.policy_scores_fused(packed, rows, pcfg)
-        sp = fused_policy.policy_scores_plain(packed, rows, pcfg.chunk_dim)
-        sm = l2f.policy_scores(model, rows, pcfg)
-        k2_err = (sk - sp).abs().max().item()
-        log(f"  K2 on {rows.shape[0]} trajectory rows: max abs err vs plain "
-            f"{k2_err:.3e} (tol {K2_TOL:g}), vs module "
-            f"{(sk - sm).abs().max().item():.3e}")
-        require(finite(sk) and k2_err <= K2_TOL, f"K2 error {k2_err:.3e}")
+        k2_err = k2_check(fused_policy, packed, rows, pcfg, l2f, model)
     summary["k2_check_s"] = ph.seconds
+
+    # --- the probe: its checks, then its entry point with counts from 0 ----
+    from lpbox_admm_tpu_torch.scripts import probe_dot
+    with Phase("probe-dot", 60) as ph:
+        probe_errs, pE, pv = probe_check(probe_dot)
+        for name in probe_dot.NAMES:
+            probe_dot.LAUNCHES[name] = 0
+        probe_res = probe_dot.probe("cuda", out=lambda s_: log("  " + s_))
+        probe_launches = dict(probe_dot.LAUNCHES)
+        log(f"  probe entry point launches {probe_launches}")
+        require(all(r["ok"] for r in probe_res.values()), "probe: all OK")
+        require(all(probe_launches[k] > 0 for k in probe_dot.NAMES),
+                f"probe launched every kernel: {probe_launches}")
+    summary["probe_dot_s"] = ph.seconds
 
     # --- the main path: counts from 0, read after the l2f solve ---------
     fused_lp.LAUNCHES = 0
@@ -750,12 +917,83 @@ def main():
         require(not over, f"packed-sym window: {over} over {K1_TOL:g}")
     summary.update(xl_symm_s=symm_s, xl_symm_it=ws.it)
 
+    # --- the xl l2f solve: counts from 0, read after it --------------------
+    del xst, xsol, ws
+    fused_lp.LAUNCHES = 0
+    fused_policy.LAUNCHES = 0
+    with Phase("xl-l2f", 240) as ph, \
+            FirstCall(l2f, "policy_scores_fused") as k2_in, \
+            FirstCall(l2f, "solve_fused_from") as tail_in:
+        torch.cuda.reset_peak_memory_stats()
+        xtm = {}
+        _, xout = l2f.l2f_solve_compact(
+            xprob, model, cfg, pcfg, ws=100,
+            policy_windows=3, rho_boost_iters=5000, max_iter=10000,
+            repair_rounds=REPAIR_ROUNDS, swap_rounds=SWAP_ROUNDS,
+            timings=xtm)
+        torch.cuda.synchronize()
+        xl2f_s = time.perf_counter() - ph.t0
+        peak_l2f = torch.cuda.max_memory_allocated()
+        xl2f_launches = {"K1": fused_lp.LAUNCHES, "K2": fused_policy.LAUNCHES}
+        xl2f_mean = xout["obj"].mean().item()
+        xl2f_gap = (xl2f_mean - x_mean) / abs(x_mean)
+        xl2f_inf = int((xout["infeasible"] > 0).sum())
+        fixes = xout["n_fixed"].float()
+        # the tail's iterations: from its start state (after compaction
+        # and the rho fast-forward) to the end
+        tail_it = (xout["iterations"] - tail_in.args[0].it
+                   if tail_in.args is not None else None)
+        log(f"  xl l2f: wall {xl2f_s:.2f} s (policy {xtm['policy_s']:.2f} s, "
+            f"tail {xtm['tail_s']:.2f} s, {tail_it} tail iterations), "
+            "routes policy "
+            f"{xtm['policy_route']} tail {xtm['tail_route']}, buckets (n, m) "
+            f"{xtm['buckets']}, it {xout['iterations']}, fixes/instance mean "
+            f"{fixes.mean().item():.1f} min {fixes.min().item():.0f} max "
+            f"{fixes.max().item():.0f}, launches {xl2f_launches}, peak "
+            f"memory {peak_l2f / 2**30:.2f} GiB")
+        log(f"  xl l2f mean obj {xl2f_mean:.2f} against the xl plain solve's "
+            f"{x_mean:.2f}: gap {xl2f_gap:+.4%}; infeasible instances "
+            f"{xl2f_inf}")
+        require(xtm["policy_route"] == "windows",
+                "xl l2f: the policy phase takes the windows route")
+        require(xl2f_launches["K2"] > 0, f"xl l2f launched K2: {xl2f_launches}")
+        require((xl2f_launches["K1"] > 0) == (xtm["tail_route"] == "k1"),
+                f"xl l2f: K1 launched exactly on the K1 tail route: "
+                f"{xl2f_launches}, {xtm['tail_route']}")
+        require(xl2f_inf == 0, "xl l2f: 0 infeasible")
+        require(finite(xout["obj"], xout["solution"]), "xl l2f: finite")
+        require(xl2f_gap <= XL_L2F_GAP,
+                f"xl l2f mean objective within {XL_L2F_GAP:.0%} of the xl "
+                "plain solve's")
+    summary.update(xl_l2f_s=xl2f_s, xl_l2f_timings=xtm,
+                   xl_l2f_mean_obj=xl2f_mean, xl_l2f_gap=xl2f_gap,
+                   xl_l2f_fixes=fixes.mean().item(),
+                   xl_l2f_it=xout["iterations"], xl_l2f_tail_it=tail_it,
+                   xl_l2f_peak_gib=peak_l2f / 2**30,
+                   xl_l2f_launches=xl2f_launches)
+    del xout
+
+    # --- K2 and K1 at the xl l2f path's shapes, on its own operands -------
+    with Phase("xl-l2f-check", 120) as ph:
+        k2x_err = k2_check(fused_policy, packed, k2_in.args[1], pcfg, l2f)
+        tail_k1 = None
+        if xtm["tail_route"] == "k1":
+            tail_k1 = (*tail_in.args[:3], tail_in.kwargs.get("nfactor"))
+            xl_tail_k1_check(*tail_k1, fused_lp, compare)
+    summary["xl_l2f_check_s"] = ph.seconds
+    del k2_in, tail_in
+
     with Phase("timing", 120) as ph:
         kernels = timings(prob, cfg, pcfg, packed, rows, lp, fused_lp,
-                          fused_policy, launches, k1_res, k2_err)
+                          fused_policy, launches, k1_res,
+                          max(k2_err, k2x_err))
+        if tail_k1 is not None:
+            summary["xl_tail_k1"] = xl_tail_k1_timing(*tail_k1, fused_lp)
         kernels += xl_timings(k3_args, Gp, v4, s0x.ginv, fused_stream, symm,
                               {"K3": xl_launches["K3"],
                                "K4": sym_launches["K4"]}, k3_res, k4_res)
+        kernels += probe_timings(pE, pv, probe_dot, probe_launches,
+                                 probe_errs)
     summary["timing_s"] = ph.seconds
     summary["total_s"] = time.perf_counter() - T_START
     log("summary " + json.dumps(summary, default=str))
@@ -783,14 +1021,7 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
     require(int(out.done.sum()) == 0, "timed K1 window runs all iterations")
     k1_ms = cuda_ms(run_k, 5)
     k1_plain_ms = cuda_ms(run_p, 2)
-    # work of the window: each m-side iteration does 5 (m x n) products
-    # (E^T w, E rhs, E x0, E^T u, E^T E x0), one (m x m) product and, every
-    # incumbent_stride-th iteration, one more (m x n) product; 2 flops/FMA
-    inc = len([t for t in range(W) if t % cfg.incumbent_stride == 0])
-    k1_flops = B * 2.0 * (W * (5 * m * n + m * m) + inc * m * n)
-    k1_bytes = sum(t.numel() * t.element_size() for t in a
-                   if t is not None) + \
-        sum(t.numel() * t.element_size() for t in out if t is not None)
+    k1_flops, k1_bytes = k1_work(a, out, cfg, 0, W)
     k1_bound = max(k1_flops / PEAK_F32_FLOPS, k1_bytes / PEAK_HBM_BYTES)
 
     R = rows.shape[0]
@@ -838,6 +1069,44 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
          >= k2_bytes / PEAK_HBM_BYTES else "bytes",
          "library_ms": None},
     ]
+
+
+def k1_work(a, out, cfg, it0, W):
+    """Flops and bytes of an m-side K1 window of W iterations from it0 in
+    which no instance stops: each iteration does 5 (m x n) products (E^T
+    w, E rhs, E x0, E^T u, E^T E x0), one (m x m) product and, every
+    incumbent_stride-th iteration, one more (m x n) product (2 flops per
+    FMA); each input read once, each output written once."""
+    B, m, n = a.E.shape
+    inc = len([t for t in range(it0, it0 + W)
+               if t % cfg.incumbent_stride == 0])
+    flops = B * 2.0 * (W * (5 * m * n + m * m) + inc * m * n)
+    nbytes = sum(t.numel() * t.element_size() for t in (*a, *out)
+                 if t is not None)
+    return flops, nbytes
+
+
+def xl_tail_k1_timing(st, prob, cfg, nfactor, fused_lp, W=100):
+    """K1 at the xl l2f tail's bucket: one W-iteration window from the
+    state the path handed K1, CUDA events over 3 launches after a warm-up
+    (the path's own windows are 1000 iterations long).  Instances that
+    stop inside the window leave their block early, so the time is that
+    of the slowest instance."""
+    a = fused_lp.window_inputs(st, prob, cfg, nfactor)
+    run = lambda: fused_lp.window_cuda(a, cfg, st.it, W)
+    out = run()
+    ms = cuda_ms(run, 3)
+    B, m, n = a.E.shape
+    res = {"shape": [B, m, n], "nside": nfactor is not None, "it0": st.it,
+           "iters": W, "ms": ms, "ms_per_it": ms / W,
+           "done_before": int(st.done.sum()),
+           "done_after": int(out.done.sum())}
+    if nfactor is None:
+        flops, nbytes = k1_work(a, out, cfg, st.it, W)
+        res["bound_ms_if_none_stop"] = 1e3 * max(flops / PEAK_F32_FLOPS,
+                                                 nbytes / PEAK_HBM_BYTES)
+    log("  K1 at the xl tail bucket: " + json.dumps(res))
+    return res
 
 
 def xl_timings(args, Gp, v, ginv, fused_stream, symm, launches, k3_res,
@@ -892,6 +1161,46 @@ def xl_timings(args, Gp, v, ginv, fused_stream, symm, launches, k3_res,
          "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound * 1e3,
          "bound_by": by(k4_flops, k4_bytes), "library_ms": k4_lib_ms},
     ]
+
+
+def probe_timings(E, v, probe_dot, launches, errs):
+    """P1-P3 and the library yardstick ``torch.bmm(E, v[..., None])`` at
+    the probe's shape, two ways: one call at a time after a 1 GiB read
+    that leaves L2 cold (the rows' ``ms``), and back to back (logged)."""
+    import torch
+    flush = torch.empty(256 * 2**20, dtype=torch.float32, device="cuda")
+    bt, m, n = E.shape
+    fns = {name: (lambda name=name: probe_dot.launch(name, E, v))
+           for name in probe_dot.NAMES}
+    fns["bmm"] = lambda: torch.bmm(E, v[..., None])
+    cold = {k: cuda_ms_cold(f, 50, flush) for k, f in fns.items()}
+    warm = {k: cuda_ms(f, 200) for k, f in fns.items()}
+    plain = {name: cuda_ms(lambda name=name: probe_dot.PLAIN[name](E, v), 50)
+             for name in probe_dot.NAMES}
+    # each input read once, the output written once
+    nbytes = 4 * (E.numel() + v.numel() + bt * m)
+    rows = []
+    replaces = {"batched_dot": 43, "pairs": 50, "vpu": 61}
+    for i, name in enumerate(probe_dot.NAMES):
+        # P2 forms all bt products of every row, P1 and P3 one
+        flops = 2.0 * bt * m * n * (bt if name == "pairs" else 1)
+        bound = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS)
+        log(f"  P{i + 1} {name} ({bt}, {m}, {n}): {cold[name]:.4f} ms L2 "
+            f"cold, {warm[name]:.4f} ms back to back; plain {plain[name]:.4f}"
+            f" ms; bmm {cold['bmm']:.4f} ms cold, {warm['bmm']:.4f} ms back "
+            f"to back; bound {bound * 1e3:.5f} ms ({flops:.3e} flop, "
+            f"{nbytes} B)")
+        rows.append(
+            {"name": f"P{i + 1} probe {name}", "route": "cuda",
+             "source": "lpbox_admm_tpu_torch/csrc/probe_dot.cu",
+             "replaces": f"scripts/probe_dot.py:{replaces[name]}",
+             "launches": launches[name], "max_abs_err": errs[name],
+             "ms": cold[name], "plain_ms": plain[name],
+             "bound_ms": bound * 1e3,
+             "bound_by": "operations" if flops / PEAK_F32_FLOPS
+             >= nbytes / PEAK_HBM_BYTES else "bytes",
+             "library_ms": cold["bmm"]})
+    return rows
 
 
 if __name__ == "__main__":

@@ -83,6 +83,7 @@ struct LpWindowArgs {
   float* traj;             // (B, window, n) when record, else null
   int B, m, n, H, window, it0, skip_cvg_at, record, nside, e_bf16;
   int rho_change_step, incumbent_stride, feasible_incumbent;
+  int smem_bytes;          // dynamic shared memory, as the caller sized it
   float initial_rho, log_learning_fact, gamma0, log_gamma_factor;
   float stop_threshold, std_threshold, pcg_tol2;
 };
@@ -436,16 +437,20 @@ __global__ void __launch_bounds__(NT) lp_window_kernel(const LpWindowArgs a) {
   }
 }
 
+// The kernel's carve-up of shared memory in floats: 13 n-vectors, 9
+// m-vectors, the column partial sums and the reduction scratch.
+size_t carve_floats(int m, int n) {
+  return 13 * (size_t)n + 9 * (size_t)m + 2 * (size_t)col_groups(n) * n +
+         4 * NW + 4;
+}
+
 template <typename TE>
 cudaError_t launch(const LpWindowArgs& a, cudaStream_t stream) {
-  const size_t floats = 13 * (size_t)a.n + 9 * (size_t)a.m +
-                        2 * (size_t)col_groups(a.n) * a.n + 4 * NW + 4;
-  const size_t bytes = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       lp_window_kernel<TE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      a.smem_bytes);
   if (err != cudaSuccess) return err;
-  lp_window_kernel<TE><<<a.B, NT, bytes, stream>>>(a);
+  lp_window_kernel<TE><<<a.B, NT, a.smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -462,7 +467,8 @@ LPBOX_API int lpbox_lp_window(const void* args, void* stream) {
   const LpWindowArgs& a = *static_cast<const LpWindowArgs*>(args);
   if (a.n % 4 || a.m % 4 || a.n <= 0 || a.m <= 0 || a.H < 2 || a.H > HMAX ||
       a.rho_change_step <= 0 || (a.record && a.traj == nullptr) ||
-      (a.nside && a.ete == nullptr))
+      (a.nside && a.ete == nullptr) ||
+      (size_t)a.smem_bytes != carve_floats(a.m, a.n) * sizeof(float))
     return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.window == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

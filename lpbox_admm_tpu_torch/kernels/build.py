@@ -113,12 +113,15 @@ def library() -> ctypes.CDLL:
     stream, and returns the ``cudaError_t`` of the launch."""
     lib = ctypes.CDLL(str(build()))
     for name in ("lpbox_lp_window", "lpbox_policy_forward",
-                 "lpbox_stream_sweep", "lpbox_symm_matvec"):
+                 "lpbox_stream_sweep", "lpbox_symm_matvec",
+                 "lpbox_probe_batched", "lpbox_probe_pairs",
+                 "lpbox_probe_vpu"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for name in ("lpbox_lp_window_args_size", "lpbox_policy_args_size",
-                 "lpbox_stream_sweep_args_size", "lpbox_symm_args_size"):
+                 "lpbox_stream_sweep_args_size", "lpbox_symm_args_size",
+                 "lpbox_probe_args_size"):
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ctypes.c_int

@@ -9,6 +9,9 @@ tracking and an optional (B, n, window) trajectory record.  On a CUDA
 tensor it launches the CUDA kernel (one thread block per instance) and
 counts the launch in ``LAUNCHES``; on a CPU tensor it runs
 ``window_plain``, the same arithmetic in the same order in PyTorch.
+One thread block holds one instance's vectors in shared memory, so the
+kernel takes an (m, n) only where ``fits``; ``window_cuda`` refuses any
+other shape before it launches.
 
 The TPU kernel's instance blocking (``bt``/``auto_bt``), its rank-3
 vector layout, VMEM chunking and unrolling are TPU concerns and are not
@@ -28,8 +31,13 @@ import torch
 from ..config import SolverConfig
 from ..core import lp as lp_core
 from ..core.problem import LpProblem
+from .fused_stream import _SMEM_MAX
 
 _EPS = 2.2204e-16
+#: the kernel's threads per block and warps (``NT``, ``NW`` in
+#: csrc/lp_window.cu)
+_NT = 512
+_NW = _NT // 32
 
 #: kernel launches made by ``lp_window_fused`` in this process
 LAUNCHES = 0
@@ -72,6 +80,30 @@ class WindowOut(NamedTuple):
     y3: torch.Tensor
     ex: torch.Tensor
     traj: Optional[torch.Tensor]   # (B, window, n) when recording
+
+
+def smem_bytes(m: int, n: int) -> int:
+    """Shared memory one K1 thread block needs at (m, n): the vectors of
+    one instance, the column partial sums and the reduction scratch.
+    The launch takes this size (``LpWindowArgs.smem_bytes``) and the
+    kernel refuses one that differs from its carve-up."""
+    nq = n // 4
+    col_groups = 1 if nq >= _NT else _NT // nq
+    return 4 * (13 * n + 9 * m + 2 * col_groups * n + 4 * _NW + 4)
+
+
+def fits(m: int, n: int) -> bool:
+    """Whether K1 can hold one (m, n) instance on this card."""
+    return smem_bytes(m, n) <= _SMEM_MAX
+
+
+def check_fits(m: int, n: int) -> None:
+    """Refuse, before any launch, a shape K1 cannot hold."""
+    if not fits(m, n):
+        raise ValueError(
+            f"fused window at (m, n) = ({m}, {n}) needs "
+            f"{smem_bytes(m, n)} bytes of shared memory per thread block; "
+            f"the limit is {_SMEM_MAX} bytes")
 
 
 def _f32(v: float) -> float:
@@ -220,7 +252,7 @@ class _Args(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "B", "m", "n", "H", "window", "it0", "skip_cvg_at", "record",
             "nside", "e_bf16", "rho_change_step", "incumbent_stride",
-            "feasible_incumbent")] + [
+            "feasible_incumbent", "smem_bytes")] + [
         (name, ctypes.c_float) for name in (
             "initial_rho", "log_learning_fact", "gamma0",
             "log_gamma_factor", "stop_threshold", "std_threshold",
@@ -240,6 +272,7 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
         raise TypeError(f"E must be float32 or bfloat16, got {a.E.dtype}")
     if n % 4 or m % 4:
         raise ValueError(f"fused window needs m, n multiples of 4: {(m, n)}")
+    check_fits(m, n)
     H = cfg.history_size
     fac_shape = (B, n, n) if nside else (B, m, m)
     want = dict(fac=fac_shape, ete=(B, n, n) if nside else None,
@@ -280,7 +313,7 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
         B, m, n, H, window, it0, -1 if skip_cvg_at is None else skip_cvg_at,
         int(record), int(nside), int(a.E.dtype == torch.bfloat16),
         cfg.rho_change_step, cfg.incumbent_stride,
-        int(cfg.feasible_incumbent),
+        int(cfg.feasible_incumbent), smem_bytes(m, n),
         cfg.initial_rho, math.log(cfg.learning_fact), cfg.gamma0,
         math.log(cfg.gamma_factor), cfg.stop_threshold, cfg.std_threshold,
         cfg.pcg_tol * cfg.pcg_tol)

@@ -14,12 +14,16 @@ them:
    factor when compaction leaves n <= m), and the result is scattered
    back and selected/repaired on the original problem.
 
-The solver windows go through K1 (``ops.fused_lp.lp_window_fused``)
-and the policy is scored through K2
-(``models.fused_policy.policy_scores_fused``); each runs its kernel on
-CUDA tensors and its plain version on CPU tensors.  The JAX package's
-scorer retry/fallback chain and fused-tail -> XLA fallback answered an
-unreliable remote TPU compiler and are not ported.
+Each phase routes its solver windows on the shape alone, before any
+launch: through K1 (``ops.fused_lp.lp_window_fused``) where one
+instance fits K1's thread block (``ops.fused_lp.fits``), else through
+``core.lp.solve_window``, as the JAX package's unfused branch does.
+The policy is scored through K2
+(``models.fused_policy.policy_scores_fused``) on both routes.  Each
+kernel wrapper runs its kernel on CUDA tensors and its plain version on
+CPU tensors.  The JAX package's scorer retry/fallback chain and
+fused-tail -> XLA fallback answered an unreliable remote TPU compiler
+and are not ported: nothing here catches a launch error and retries.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from ..core import lp
 from ..core.problem import LpProblem
 from ..models.fused_policy import pack_policy_weights, policy_scores_fused
 from ..ops import woodbury
-from ..ops.fused_lp import lp_window_fused, solve_fused_from
+from ..ops.fused_lp import fits, lp_window_fused, solve_fused_from
 
 
 def traj_to_tokens(rows: torch.Tensor, pcfg: PolicyConfig) -> torch.Tensor:
@@ -93,8 +97,38 @@ def fix_margins(b: torch.Tensor, var_mask: torch.Tensor,
     return base * (1.0 - pcfg.damage_gate * rank)
 
 
+def _route(m: int, n: int) -> str:
+    """The solver route for (m, n) instances: ``"k1"`` where K1 holds
+    one instance, else ``"windows"`` (``core.lp`` windows).  The JAX
+    package fuses only when ``n * ws <= 65536`` (its l2f.py:795-796);
+    that rule is the TPU's VMEM budget, so the port routes on K1's own
+    shared-memory need on this card instead."""
+    return "k1" if fits(m, n) else "windows"
+
+
+def _policy_window(state, prob, packed, cfg, pcfg, ws, route, margins,
+                   streak1, streak0):
+    """One recorded window, its policy scores, the streak update and the
+    fix.  Returns the state, the fix vector (B, n) in {-1, 0, 1} and the
+    streaks."""
+    if route == "k1":
+        state, traj = lp_window_fused(state, prob, cfg, ws, record=True)
+    else:
+        state, traj = lp.solve_window(state, prob, cfg, ws, record=True)
+    sig = policy_scores_fused(packed, traj.reshape(-1, ws), pcfg
+                              ).reshape(state.x.shape)
+    streak1 = torch.where(sig > 1.0 - margins, streak1 + 1,
+                          torch.zeros_like(streak1))
+    streak0 = torch.where(sig < margins, streak0 + 1,
+                          torch.zeros_like(streak0))
+    k = pcfg.fix_windows
+    vec = torch.where(streak1 >= k, 1.0,
+                      torch.where(streak0 >= k, 0.0, -1.0)).float()
+    return lp.apply_fix(state, prob, vec, cfg), vec, streak1, streak0
+
+
 def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
-                  max_iter):
+                  max_iter, route):
     """Phase 1: recorded windows, policy scoring and streak fixing.
     Returns the state and the largest free-column / supported-row
     counts over the batch (host integers)."""
@@ -105,17 +139,9 @@ def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
     w = 0
     while (w < policy_windows and state.it < max_iter
            and not bool(state.done.all())):
-        state, traj = lp_window_fused(state, prob, cfg, ws, record=True)
-        sig = policy_scores_fused(packed, traj.reshape(-1, ws), pcfg
-                                  ).reshape(state.x.shape)
-        conf1 = sig > 1.0 - margins
-        conf0 = sig < margins
-        streak1 = torch.where(conf1, streak1 + 1, torch.zeros_like(streak1))
-        streak0 = torch.where(conf0, streak0 + 1, torch.zeros_like(streak0))
-        k = pcfg.fix_windows
-        vec = torch.where(streak1 >= k, 1.0,
-                          torch.where(streak0 >= k, 0.0, -1.0)).float()
-        state = lp.apply_fix(state, prob, vec, cfg)
+        state, _, streak1, streak0 = _policy_window(
+            state, prob, packed, cfg, pcfg, ws, route, margins, streak1,
+            streak0)
         w += 1
     support = ((prob.E.abs() > 0) & state.free[:, None, :]).any(-1) \
         & prob.row_mask
@@ -148,8 +174,10 @@ def _finalize(state, idx_map, fixed_full, free_full, orig_prob,
 def _tail_phase(state, orig_prob, cfg, n_new, m_new, rho_boost, max_iter,
                 ws, repair_rounds=0, swap_rounds=0,
                 cfg_changed=False):
-    """Phase 2: compaction, rho fast-forward, n-side factor, residual
-    solve to convergence, scatter + selection."""
+    """Phase 2: compaction, rho fast-forward, residual solve to
+    convergence (K1, n-side factor when the bucket has n <= m, or
+    ``core.lp`` windows of ``ws`` where K1 cannot hold the bucket),
+    scatter + selection.  Returns the route with the results."""
     prob = orig_prob
     fixed_full, free_full = state.fixed_val, state.free
     B, n_full = state.x.shape
@@ -166,17 +194,23 @@ def _tail_phase(state, orig_prob, cfg, n_new, m_new, rho_boost, max_iter,
         # depends on rho and is refreshed)
         state = lp.refresh_et_next(state.replace(it=state.it + rho_boost),
                                    prob, cfg)
-    nfactor = None
-    if prob.n <= prob.m:
-        nf = woodbury.factorize_nside(prob.E, state.free,
-                                     lp._factor_ratio(cfg))
-        nfactor = (nf.hinv, nf.ete)
-    state = solve_fused_from(state, prob, cfg, max_iters=max_iter,
-                             window=max(ws, 1000), nfactor=nfactor)
+    route = _route(prob.m, prob.n)
+    if route == "k1":
+        nfactor = None
+        if prob.n <= prob.m:
+            nf = woodbury.factorize_nside(prob.E, state.free,
+                                         lp._factor_ratio(cfg))
+            nfactor = (nf.hinv, nf.ete)
+        state = solve_fused_from(state, prob, cfg, max_iters=max_iter,
+                                 window=max(ws, 1000), nfactor=nfactor)
+    else:
+        # the JAX package's _residual_phase_xla (its l2f.py:640-650)
+        while state.it < max_iter and not bool(state.done.all()):
+            state, _ = lp.solve_window(state, prob, cfg, ws, record=False)
     sol, obj, infeas, n_fixed = _finalize(state, idx_map, fixed_full,
                                           free_full, orig_prob,
                                           repair_rounds, swap_rounds)
-    return state, sol, obj, lp.objective(state), infeas, n_fixed
+    return state, sol, obj, lp.objective(state), infeas, n_fixed, route
 
 
 def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
@@ -194,8 +228,9 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     load_policy``); its weights are packed once for K2.
     ``tail_rho_step`` sets rho_change_step for the residual phase only.
     ``timings`` (a dict) receives the phase wall times, each ended by a
-    device synchronisation, the tail's buckets and whether its residual
-    ran in K1's n-side mode.  Returns ``(final_state, out)`` with the
+    device synchronisation, the tail's buckets, whether its bucket has
+    n <= m (K1's n-side mode on the K1 route) and each phase's route,
+    ``policy_route`` and ``tail_route``, ``"k1"`` or ``"windows"``.  Returns ``(final_state, out)`` with the
     full-width binary solution, objective, iterations, infeasible rows
     and fixing information."""
 
@@ -213,8 +248,9 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     t0 = time.perf_counter()
     state = lp.init_state(prob, cfg)
     packed = pack_policy_weights(model)
+    policy_route = _route(prob.m, prob.n)
     state, mf, mr = _policy_phase(state, prob, packed, cfg, pcfg, ws,
-                                  policy_windows, max_iter)
+                                  policy_windows, max_iter, policy_route)
     t0 = _mark("policy_s", t0)
 
     fixed_full, free_full = state.fixed_val, state.free
@@ -222,13 +258,16 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     m_b = _bucket(mr, m_min_bucket, prob.m)
     cfg_tail = cfg if tail_rho_step is None \
         else cfg.replace(rho_change_step=tail_rho_step)
-    state, sol_full, obj, obj_last, infeas, n_fixed = _tail_phase(
-        state, prob, cfg_tail, n_b, m_b, rho_boost_iters, max_iter, ws,
-        repair_rounds, swap_rounds, cfg_changed=cfg_tail is not cfg)
+    state, sol_full, obj, obj_last, infeas, n_fixed, tail_route = \
+        _tail_phase(state, prob, cfg_tail, n_b, m_b, rho_boost_iters,
+                    max_iter, ws, repair_rounds, swap_rounds,
+                    cfg_changed=cfg_tail is not cfg)
     t0 = _mark("tail_s", t0)
     if timings is not None:
         timings["buckets"] = (n_b, m_b)
         timings["nside"] = n_b <= m_b
+        timings["policy_route"] = policy_route
+        timings["tail_route"] = tail_route
     return state, {
         "solution": sol_full,
         "obj": obj,

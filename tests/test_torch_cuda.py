@@ -1,4 +1,5 @@
-"""K1 to K4 against their plain versions on a CUDA device.
+"""K1 to K4 and P1 to P3 against their plain versions on a CUDA device,
+K1's refusal of the xl shape and one l2f policy window at that shape.
 
 Marked ``cuda``: skipped where there is no card (``torch.cuda`` is
 asked inside the fixture, never at import).  On the card:
@@ -11,9 +12,9 @@ last iteration (the factor by which a dual step scales an error of x);
 1e-3 relative to max(1, |ref|) per instance on the objectives; 1e-4
 absolute on the sigmoids.  One K3 sweep: 1e-4 relative to
 max(1, max |ref|) per output (f32 sums over m and n in another order);
-K4: 1e-5 relative to max |ref|.  K3 and K4 sum in a fixed order without
-atomics, so a repeat launch, and K3 on bf16 and on f32 E (0/1 entries),
-give the same bits.
+K4 and P1-P3: 1e-5 relative to max |ref|.  K3, K4 and P1-P3 sum in a
+fixed order without atomics, so a repeat launch, and K3 on bf16 and on
+f32 E (0/1 entries), give the same bits.
 """
 
 from pathlib import Path
@@ -25,9 +26,12 @@ import torch
 from lpbox_admm_tpu_torch.adapters import ca
 from lpbox_admm_tpu_torch.config import LP_CONFIG, PolicyConfig
 from lpbox_admm_tpu_torch.core import lp
+from lpbox_admm_tpu_torch.core.problem import LpProblem
 from lpbox_admm_tpu_torch.models import fused_policy
 from lpbox_admm_tpu_torch.ops import fused_lp, fused_stream, symm, woodbury
 from lpbox_admm_tpu_torch.ops.schedule import gamma_at, rho_at
+from lpbox_admm_tpu_torch.scripts import probe_dot
+from lpbox_admm_tpu_torch.train import l2f
 from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
 
 pytestmark = pytest.mark.cuda
@@ -192,3 +196,65 @@ def test_k4_matches_plain(cuda, m):
         err = (y - ref).abs().max().item() / ref.abs().max().item()
         assert err <= 1e-5, err
     assert torch.equal(y, symm.symm_matvec_cuda(Gp, v))
+
+
+@pytest.mark.parametrize("name", probe_dot.NAMES)
+def test_probe_matches_plain(cuda, name):
+    E_np, v_np = probe_dot.make_inputs()
+    E, v = torch.from_numpy(E_np).to(cuda), torch.from_numpy(v_np).to(cuda)
+    before = probe_dot.LAUNCHES[name]
+    y = probe_dot.matvec(name, E, v)
+    assert probe_dot.LAUNCHES[name] == before + 1
+    want = torch.einsum("bmn,bn->bm", E.double(), v.double())
+    scale = want.abs().max().item()
+    for ref in (probe_dot.PLAIN[name](E, v).double(), want):
+        assert (y.double() - ref).abs().max().item() <= 1e-5 * scale
+    assert torch.equal(y, probe_dot.launch(name, E, v))
+
+
+@pytest.fixture(scope="module")
+def prob_xl(cuda):
+    """Eight random 0/1 LPs at the xl rung's padded shape (1664, 4096)."""
+    g = torch.Generator(cuda).manual_seed(0)
+    B, m, n = 8, 1664, 4096
+    E = (torch.rand(B, m, n, device=cuda, generator=g) < 0.004).float()
+    return LpProblem(b=-torch.rand(B, n, device=cuda, generator=g) * 100,
+                     E=E, f=torch.ones(B, m, device=cuda),
+                     row_mask=torch.ones(B, m, dtype=torch.bool,
+                                         device=cuda),
+                     var_mask=torch.ones(B, n, dtype=torch.bool,
+                                         device=cuda))
+
+
+def test_k1_refuses_xl_shape(prob_xl):
+    assert not fused_lp.fits(prob_xl.m, prob_xl.n)
+    s0 = lp.init_state(prob_xl, CFG)
+    before = fused_lp.LAUNCHES
+    with pytest.raises(ValueError, match="232448 bytes"):
+        fused_lp.lp_window_fused(s0, prob_xl, CFG, 2)
+    torch.cuda.synchronize()
+    assert fused_lp.LAUNCHES == before
+
+
+def test_l2f_policy_window_at_xl(prob_xl):
+    """One policy window where K1 cannot hold the shape: recorded by
+    core.lp windows, scored by K2, fixed in {-1, 0, 1}."""
+    cfg = CFG.replace(incumbent_stride=8)
+    pcfg = PolicyConfig(net="mha", fix_confidence=0.98, fix_windows=1,
+                        damage_gate=0.25)
+    route = l2f._route(prob_xl.m, prob_xl.n)
+    assert route == "windows"
+    packed = fused_policy.pack_policy_weights(
+        load_policy(CKPT, device=prob_xl.device))
+    s0 = lp.init_state(prob_xl, cfg)
+    zeros = torch.zeros(s0.x.shape, dtype=torch.int32, device=s0.x.device)
+    k1, k2 = fused_lp.LAUNCHES, fused_policy.LAUNCHES
+    st, vec, streak1, streak0 = l2f._policy_window(
+        s0, prob_xl, packed, cfg, pcfg, 100, route,
+        l2f.fix_margins(prob_xl.b, prob_xl.var_mask, pcfg), zeros, zeros)
+    torch.cuda.synchronize()
+    assert fused_lp.LAUNCHES == k1 and fused_policy.LAUNCHES == k2 + 1
+    assert st.it == 100 and vec.shape == (8, 4096)
+    assert set(vec.unique().tolist()) <= {-1.0, 0.0, 1.0}
+    assert not bool((~st.free & (vec < 0)).any())   # fixed only where told
+    assert bool(torch.isfinite(st.x).all())

@@ -56,6 +56,7 @@ for m in pkgutil.walk_packages(lpbox_admm_tpu_torch.__path__,
     importlib.import_module(m.name)
 import chip_smoke
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
+assert "lpbox_admm_tpu_torch.scripts.probe_dot" in sys.modules
 print("imports-ok")
 """
 
@@ -139,7 +140,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build()
     assert [p.name for p in build.sources()] == [
-        "lp_window.cu", "policy.cu", "stream_sweep.cu", "symm.cu"]
+        "lp_window.cu", "policy.cu", "probe_dot.cu", "stream_sweep.cu",
+        "symm.cu"]
 
 
 def _run_smoke(cwd):
