@@ -15,7 +15,7 @@ operating point of the JAX package's bench (fix confidence 0.98,
 The batched-matvec probe (``lpbox_admm_tpu_torch.scripts.probe_dot``,
 the port of the JAX package's ``scripts/probe_dot.py``): its three
 formulations P1-P3 at (8, 256, 256) through the entry point's own
-functions.
+functions; the kernels are also checked and timed at (8, 1664, 4096).
 
 Then the large-rung path: the reference's xl CA instance (800 items x
 4000 bids), 32 instances padded to (m, n) = (1664, 4096), solved by the
@@ -69,6 +69,7 @@ REPAIR_ROUNDS, SWAP_ROUNDS = 16, 4
 TOTAL_BUDGET_S = 600           # whole script, build included
 # data-sheet figures of the H100 SXM (f32 outside the tensor cores, HBM)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12       # dense, on the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 K2_TOL = 1e-4                  # absolute, on the sigmoids
 # The large rung: the reference's xl instance (800 items x 4000 bids,
@@ -92,8 +93,11 @@ K3_TOL = 1e-4
 # 1664 terms in another order; the scale is stated in k4_check).
 K4_TOL = 1e-5
 # P1-P3 against their plain versions and the float64 einsum: 1e-5 of
-# max |ref| (f32 sums of 256 products in another order).
+# max |ref| (f32 sums of n products in another order; P2's three TF32
+# passes add about 1e-8).  Held at the probe's shape and at PROBE_XL, the
+# xl block shape K3 sweeps.
 PROBE_TOL = 1e-5
+PROBE_XL = (8, 1664, 4096)
 # The xl l2f solve, at the CA-500 operating point: its mean selected
 # objective no more than 10% worse than the xl plain solve's (a wiring
 # check, as the xl plain limit is: a wrong fix sign or mapping lands far
@@ -587,40 +591,57 @@ def k4_check(prob0, s0, carry, symm):
     return {"max_abs_err": max_abs, "errs": errs}, Gp, vecs["E rhs"]
 
 
-def probe_check(probe_dot):
-    """P1-P3 at the probe's shape (8, 256, 256) against their plain
-    versions and the float64 einsum, to PROBE_TOL of max |ref|; a repeat
-    launch bit for bit; and a planted fault the limit must catch: v with
-    one entry raised by 1e-3 of max |v| (which moves a row of y by about
-    1.4e-5 of max |ref|).  Returns the largest absolute errors against
-    the plain versions and the card's operands."""
+def probe_operands(probe_dot):
+    """The probe's operands on the card, per shape: ``probe`` (8, 256,
+    256) from the JAX script's own draw (``make_inputs``), and ``xl``
+    PROBE_XL, the xl block shape K3 sweeps, drawn on the card from a
+    seeded ``torch.Generator`` (uniform on [0, 1) as ``rand`` is), so no
+    host set-up is added."""
     import torch
     E_np, v_np = probe_dot.make_inputs()
-    E = torch.from_numpy(E_np).cuda()
-    v = torch.from_numpy(v_np).cuda()
-    want = torch.einsum("bmn,bn->bm", E.double(), v.double())
-    scale = want.abs().max().item()
-    v_bad = v.clone()
-    v_bad[0, 0] += 1e-3 * v.abs().max()
+    ops = {"probe": (torch.from_numpy(E_np).cuda(),
+                     torch.from_numpy(v_np).cuda())}
+    g = torch.Generator("cuda").manual_seed(0)
+    bt, m, n = PROBE_XL
+    ops["xl"] = (torch.rand(bt, m, n, device="cuda", generator=g),
+                 torch.rand(bt, n, device="cuda", generator=g))
+    return ops
+
+
+def probe_check(probe_dot, ops):
+    """P1-P3 at each shape of ``ops`` against their plain versions and the
+    float64 einsum, to PROBE_TOL of max |ref|; a repeat launch bit for
+    bit; and a planted fault the limit must catch: v[0, 0] raised so that
+    the row of y where E[0, :, 0] is largest moves by 1.3x the limit (at
+    the probe's shape that is about 1e-3 of max |v|).  Returns the
+    largest absolute errors against the plain versions, per shape."""
+    import torch
     errs = {}
-    for name in probe_dot.NAMES:
-        y = probe_dot.launch(name, E, v)
-        plain = probe_dot.PLAIN[name](E, v)
-        e_plain = (y - plain).abs().max().item()
-        e_ref = (y.double() - want).abs().max().item()
-        bad = (probe_dot.launch(name, E, v_bad) - plain).abs().max().item()
-        log(f"  {name}: max abs err vs plain {e_plain:.3e}, vs f64 einsum "
-            f"{e_ref:.3e} (limit {PROBE_TOL * scale:.3e}); planted fault "
-            f"{bad:.3e}")
-        require(finite(y), f"{name}: finite")
-        require(max(e_plain, e_ref) <= PROBE_TOL * scale,
-                f"{name} over {PROBE_TOL:g} of max |ref|")
-        require(bad > PROBE_TOL * scale,
-                f"{name}: limit misses the planted fault")
-        require(torch.equal(y, probe_dot.launch(name, E, v)),
-                f"{name}: repeat launch, same bits")
-        errs[name] = e_plain
-    return errs, E, v
+    for label, (E, v) in ops.items():
+        want = torch.einsum("bmn,bn->bm", E.double(), v.double())
+        scale = want.abs().max().item()
+        v_bad = v.clone()
+        v_bad[0, 0] += 1.3 * PROBE_TOL * scale / E[0, :, 0].max()
+        errs[label] = {}
+        for name in probe_dot.NAMES:
+            y = probe_dot.launch(name, E, v)
+            plain = probe_dot.PLAIN[name](E, v)
+            e_plain = (y - plain).abs().max().item()
+            e_ref = (y.double() - want).abs().max().item()
+            bad = (probe_dot.launch(name, E, v_bad) - plain).abs().max().item()
+            log(f"  {name} {tuple(E.shape)}: max abs err vs plain "
+                f"{e_plain:.3e}, vs f64 einsum {e_ref:.3e} = "
+                f"{e_ref / scale:.2e} of max |ref| (limit "
+                f"{PROBE_TOL * scale:.3e}); planted fault {bad:.3e}")
+            require(finite(y), f"{name} {label}: finite")
+            require(max(e_plain, e_ref) <= PROBE_TOL * scale,
+                    f"{name} {label} over {PROBE_TOL:g} of max |ref|")
+            require(bad > PROBE_TOL * scale,
+                    f"{name} {label}: limit misses the planted fault")
+            require(torch.equal(y, probe_dot.launch(name, E, v)),
+                    f"{name} {label}: repeat launch, same bits")
+            errs[label][name] = e_plain
+    return errs
 
 
 def stream_split(s0, prob0, cfg, E16, fused_stream, W=100):
@@ -755,7 +776,8 @@ def main():
     # --- the probe: its checks, then its entry point with counts from 0 ----
     from lpbox_admm_tpu_torch.scripts import probe_dot
     with Phase("probe-dot", 60) as ph:
-        probe_errs, pE, pv = probe_check(probe_dot)
+        probe_ops = probe_operands(probe_dot)
+        probe_errs = probe_check(probe_dot, probe_ops)
         for name in probe_dot.NAMES:
             probe_dot.LAUNCHES[name] = 0
         probe_res = probe_dot.probe("cuda", out=lambda s_: log("  " + s_))
@@ -992,7 +1014,7 @@ def main():
         kernels += xl_timings(k3_args, Gp, v4, s0x.ginv, fused_stream, symm,
                               {"K3": xl_launches["K3"],
                                "K4": sym_launches["K4"]}, k3_res, k4_res)
-        kernels += probe_timings(pE, pv, probe_dot, probe_launches,
+        kernels += probe_timings(probe_ops, probe_dot, probe_launches,
                                  probe_errs)
     summary["timing_s"] = ph.seconds
     summary["total_s"] = time.perf_counter() - T_START
@@ -1163,43 +1185,61 @@ def xl_timings(args, Gp, v, ginv, fused_stream, symm, launches, k3_res,
     ]
 
 
-def probe_timings(E, v, probe_dot, launches, errs):
+def probe_timings(ops, probe_dot, launches, errs):
     """P1-P3 and the library yardstick ``torch.bmm(E, v[..., None])`` at
-    the probe's shape, two ways: one call at a time after a 1 GiB read
-    that leaves L2 cold (the rows' ``ms``), and back to back (logged)."""
+    each shape of ``ops``, two ways: one call at a time after a 1 GiB
+    read that leaves L2 cold (the rows' ``ms`` at the probe's shape,
+    ``ms_xl`` at PROBE_XL), and back to back (logged); the plain
+    versions back to back at the probe's shape."""
     import torch
     flush = torch.empty(256 * 2**20, dtype=torch.float32, device="cuda")
-    bt, m, n = E.shape
-    fns = {name: (lambda name=name: probe_dot.launch(name, E, v))
-           for name in probe_dot.NAMES}
-    fns["bmm"] = lambda: torch.bmm(E, v[..., None])
-    cold = {k: cuda_ms_cold(f, 50, flush) for k, f in fns.items()}
-    warm = {k: cuda_ms(f, 200) for k, f in fns.items()}
-    plain = {name: cuda_ms(lambda name=name: probe_dot.PLAIN[name](E, v), 50)
-             for name in probe_dot.NAMES}
-    # each input read once, the output written once
-    nbytes = 4 * (E.numel() + v.numel() + bt * m)
+    reps = {"probe": (50, 200), "xl": (20, 50)}
+    res = {}
+    for label, (E, v) in ops.items():
+        bt, m, n = E.shape
+        fns = {name: (lambda name=name: probe_dot.launch(name, E, v))
+               for name in probe_dot.NAMES}
+        fns["bmm"] = lambda: torch.bmm(E, v[..., None])
+        cold = {k: cuda_ms_cold(f, reps[label][0], flush)
+                for k, f in fns.items()}
+        warm = {k: cuda_ms(f, reps[label][1]) for k, f in fns.items()}
+        # each input read once, the output written once
+        nbytes = 4 * (E.numel() + v.numel() + bt * m)
+        for i, name in enumerate(probe_dot.NAMES):
+            if name == "pairs":
+                # bt-fold products, three passes on the TF32 tensor cores
+                flops = 2.0 * bt * bt * m * n
+                t_ops = 3 * flops / PEAK_TF32_FLOPS
+            else:
+                flops = 2.0 * bt * m * n
+                t_ops = flops / PEAK_F32_FLOPS
+            t_bytes = nbytes / PEAK_HBM_BYTES
+            bound = max(t_bytes, t_ops)
+            log(f"  P{i + 1} {name} ({bt}, {m}, {n}), E {4 * E.numel()} B: "
+                f"{cold[name]:.4f} ms L2 cold, {warm[name] * 1e3:.1f} us "
+                f"back to back; bmm {cold['bmm']:.4f} ms cold, "
+                f"{warm['bmm'] * 1e3:.1f} us back to back; bound "
+                f"{bound * 1e3:.5f} ms ({flops:.3e} flop, {nbytes} B), "
+                f"{bound * 1e3 / cold[name]:.1%} of it")
+            res.setdefault(name, {})[label] = {
+                "ms": cold[name], "library_ms": cold["bmm"],
+                "bound_ms": bound * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    E, v = ops["probe"]
     rows = []
     replaces = {"batched_dot": 43, "pairs": 50, "vpu": 61}
     for i, name in enumerate(probe_dot.NAMES):
-        # P2 forms all bt products of every row, P1 and P3 one
-        flops = 2.0 * bt * m * n * (bt if name == "pairs" else 1)
-        bound = max(nbytes / PEAK_HBM_BYTES, flops / PEAK_F32_FLOPS)
-        log(f"  P{i + 1} {name} ({bt}, {m}, {n}): {cold[name]:.4f} ms L2 "
-            f"cold, {warm[name]:.4f} ms back to back; plain {plain[name]:.4f}"
-            f" ms; bmm {cold['bmm']:.4f} ms cold, {warm['bmm']:.4f} ms back "
-            f"to back; bound {bound * 1e3:.5f} ms ({flops:.3e} flop, "
-            f"{nbytes} B)")
+        plain = cuda_ms(lambda name=name: probe_dot.PLAIN[name](E, v), 50)
+        p, x = res[name]["probe"], res[name]["xl"]
         rows.append(
             {"name": f"P{i + 1} probe {name}", "route": "cuda",
              "source": "lpbox_admm_tpu_torch/csrc/probe_dot.cu",
              "replaces": f"scripts/probe_dot.py:{replaces[name]}",
-             "launches": launches[name], "max_abs_err": errs[name],
-             "ms": cold[name], "plain_ms": plain[name],
-             "bound_ms": bound * 1e3,
-             "bound_by": "operations" if flops / PEAK_F32_FLOPS
-             >= nbytes / PEAK_HBM_BYTES else "bytes",
-             "library_ms": cold["bmm"]})
+             "launches": launches[name], "max_abs_err": errs["probe"][name],
+             "ms": p["ms"], "plain_ms": plain, "bound_ms": p["bound_ms"],
+             "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+             "max_abs_err_xl": errs["xl"][name], "ms_xl": x["ms"],
+             "bound_ms_xl": x["bound_ms"], "library_ms_xl": x["library_ms"]})
     return rows
 
 

@@ -5,29 +5,70 @@
 // formulations lower in Mosaic and which is fastest per call (`run`, :30,
 // and `timeit`, :74, call them through pl.pallas_call):
 //   P1 k_batched (:43)  one batched dot_general;
-//   P2 k_pairs   (:50)  one 2-D product (bt*m, n) @ (n, bt) -> (bt, m, bt),
-//                       the diagonal b = b' selected and summed;
+//   P2 k_pairs   (:50)  one 2-D product (bt*m, n) @ (n, bt) -> (bt, m, bt)
+//                       on the matrix unit, the diagonal b = b' selected
+//                       and summed;
 //   P3 k_vpu     (:61)  a broadcast multiply E * v[:, None, :] and row sum.
 // Each keeps its formulation's own work, so the three stay three kernels:
-// P2 does bt times the flops of P1 and P3, as the TPU probe did.
+// P2 does bt times the products of P1 and P3, as the TPU probe did.
 //
-// Bound: bytes.  At the probe's shape (8, 256, 256) every kernel must read
-// E (2.10 MB) and v and write y, 0.63 us at 3.35 TB/s, against 1.05 MFLOP
-// (P1, P3) or 8.39 MFLOP (P2) of f32 FMA work, 0.02 and 0.13 us at 67
-// TFLOP/s; one launch's latency (a few us) is larger than either.
+// Bound: bytes, at both shapes the probe is timed at.  Each kernel must
+// read E and v once and write y: at (8, 256, 256) 2.10 MB, 0.63 us at
+// 3.35 TB/s; at (8, 1664, 4096) 218 MB, 65.1 us.  Operations: P1 and P3
+// 1.05 MFLOP and 109 MFLOP of f32 work, 0.016 and 1.6 us at 67 TFLOP/s;
+// P2's bt-fold product 8.39 MFLOP and 0.87 GFLOP, run three times on the
+// TF32 tensor cores (below), 0.05 and 5.3 us at 495 TFLOP/s.
 //
-// Design, simple first.  P1: one warp per output row, each lane reading
-// 16-byte quads of E's row (a warp reads 512 contiguous bytes), v of the
-// instance in shared memory, a butterfly shuffle sum.  P2: one block per
-// tile of 16 flattened rows holds the 16 x bt partial sums over the whole
-// n in registers, staging 64-column chunks of the E tile and of all bt
-// vectors in shared memory (rows padded by one word against bank
-// conflicts); the epilogue selects and sums the diagonal in shared memory.
-// Plain f32 FMA: TF32 mma.sync would miss the 1e-5 tolerance.  P3: one
-// block per (instance, 8-row tile) writes the elementwise products of a
-// 128-column chunk to shared memory and sums each row by a tree there,
-// adding the chunk sums in order.  No atomics: every sum runs in a fixed
-// order, so a repeat launch gives the same bits.
+// P1: one warp per output row, each lane reading 16-byte quads of E's
+// row (a warp reads 512 contiguous bytes), v of the instance in shared
+// memory, a butterfly shuffle sum.
+//
+// P2 runs its product on the tensor cores (mma.sync m16n8k8 TF32).  One
+// TF32 pass misses the probe's tolerance (6.0e-5 of max |ref| at
+// (8, 256, 256) against 1e-5), so each operand is split a = hi + lo, hi
+// = cvt.rna.tf32(a), lo = cvt.rna.tf32(a - hi), and lo*hi, hi*lo and
+// hi*hi are accumulated (3xTF32: 1.4e-8 of max |ref| when the products
+// are summed exactly).  The tensor core rounds its own f32 sums toward
+// zero, a loss that grows with the accumulator: one fragment carried
+// over a warp's 1024 columns at (8, 1664, 4096) was off by 1.1e-5 of max
+// |ref|.  So each k-step's 3 mma's go into a zeroed fragment, and f32
+// adds fold the 4 fragments of a 32-column chunk into the running sums.
+// A block of 4 warps owns one 16-row tile of the bt*m flattened rows
+// (128 blocks at the probe's shape, one per SM; 832 at the larger one,
+// all resident at once, 8 to an SM); warp w takes the 32-column chunks
+// w, w+4, ... of the k range and keeps all n-tiles (8 vectors each) of
+// the tile in its accumulators.  Loads go straight into the fragment
+// registers, 16 bytes a load: the k slots of a chunk are permuted (slot
+// t <-> column 4t+s, slot t+4 <-> column 16+4t+s in k-step s; the
+// product sums the same columns), so thread (g, t) reads columns 4t..
+// and 16+4t.. of E's rows g and g+8 and of vector g, and 8 lanes read
+// 128 contiguous bytes of a row.  A warp has one chunk's loads in
+// flight; the 32 warps an SM holds (64 registers a thread at bt <= 8)
+// keep the bytes in flight.  Two chunks per warp (one round trip at the
+// probe's shape) took 102 registers, fewer resident blocks, and was no
+// faster; a cp.async ring of 4 chunks per warp in shared memory, tried
+// first, was slower at both shapes though its loads alone were not.
+// The diagonal select takes, straight from the accumulator fragment,
+// the column b' = b(row) of each row, row by row (a tile may span two
+// instances); the 4 warps' selected sums are added in warp order.  n % 4
+// or unaligned operands take 4-byte loads.  The earlier design, 256
+// dependent scalar FMAs per thread from shared memory and 4 serial
+// 64-column trips to memory, took 0.0147 ms per call with L2 cold at
+// (8, 256, 256) against 0.0081 ms for torch.bmm (an H100 80GB HBM3 at
+// 700 W).
+//
+// P3: one warp per row; each lane issues 8 16-byte loads of E's row and
+// 8 of v (read-only path) before it uses the first, rounds each product
+// on its own (__fmul_rn: no contraction into an FMA, which is what sets
+// P3 apart from P1's dot), sums its products in order and ends with a
+// butterfly shuffle: one memory round trip per 1024 columns, no shared
+// memory and no barrier.  n % 4 or unaligned operands take scalar loads.
+// The earlier design, a shared-memory tree with a barrier per level and
+// two serial global trips per 128-column chunk, took 0.0122 ms at (8,
+// 256, 256) on the same card.
+//
+// No atomics: every sum runs in a fixed order, so a repeat launch gives
+// the same bits.
 #include "common.cuh"
 
 namespace {
@@ -70,103 +111,215 @@ __global__ void __launch_bounds__(P1_WARPS * 32)
   if (lane == 0) a.y[(size_t)b * a.m + row] = s;
 }
 
-constexpr int P2_ROWS = 16;   // flattened rows of E per block
-constexpr int P2_KC = 64;     // columns per staged chunk
-constexpr int P2_NT = 128;
-constexpr int P2_BTMAX = 64;  // vectors held: 16 * 64 sums in registers
-constexpr int P2_OUT = P2_ROWS * P2_BTMAX / P2_NT;
+// ---- P2 ---------------------------------------------------------------
+constexpr int P2_KW = 4;       // warps of a block, splitting the k range
+constexpr int P2_NTH = P2_KW * 32;
+constexpr int P2_KC = 32;      // columns per chunk: 4 k-steps of 8
+constexpr int P2_BTMAX = 64;   // vectors: at most 8 n-tiles of 8
 
-__global__ void __launch_bounds__(P2_NT) probe_pairs_kernel(const ProbeArgs a) {
-  __shared__ float es[P2_ROWS][P2_KC + 1];
-  __shared__ float vsh[P2_BTMAX][P2_KC + 1];
-  __shared__ float ps[P2_ROWS][P2_BTMAX + 1];
-  const int bt = a.bt, n = a.n;
-  const long long rows = (long long)bt * a.m;
-  const long long r0 = (long long)blockIdx.x * P2_ROWS;
-  const int nout = P2_ROWS * bt;  // output o: row o / bt, vector o % bt
-  float acc[P2_OUT];
-#pragma unroll
-  for (int q = 0; q < P2_OUT; ++q) acc[q] = 0.f;
-  for (int k0 = 0; k0 < n; k0 += P2_KC) {
-    for (int i = threadIdx.x; i < P2_ROWS * P2_KC; i += P2_NT) {
-      const int r = i / P2_KC, c = i % P2_KC, k = k0 + c;
-      const long long g = r0 + r;
-      es[r][c] = (g < rows && k < n) ? a.E[g * n + k] : 0.f;
-    }
-    for (int i = threadIdx.x; i < bt * P2_KC; i += P2_NT) {
-      const int bb = i / P2_KC, c = i % P2_KC, k = k0 + c;
-      vsh[bb][c] = k < n ? a.v[(size_t)bb * n + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < P2_OUT; ++q) {
-      const int o = threadIdx.x + q * P2_NT;
-      if (o < nout) {
-        const int r = o / bt, bb = o % bt;
-        float s = acc[q];
-#pragma unroll 16
-        for (int c = 0; c < P2_KC; ++c) s = fmaf(es[r][c], vsh[bb][c], s);
-        acc[q] = s;
-      }
-    }
-    __syncthreads();
+// a = hi + lo, both TF32 (round to nearest, ties away: cvt.rna); a - hi
+// is exact in f32.
+__device__ __forceinline__ void tf32_split(float a, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
+  const float r = a - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// c += A (16 x 8, row) B (8 x 8, col); fragments as in the PTX ISA's
+// m16n8k8 .tf32 layout.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float lane_of(const float4& f, int s) {
+  return s == 0 ? f.x : s == 1 ? f.y : s == 2 ? f.z : f.w;
+}
+
+// Columns k..k+3 of row p, zeros past n or where !ok: one 16-byte load
+// (VEC: n % 4 == 0 and p 16-byte aligned) or four guarded 4-byte ones.
+// E streams (evict first); v is read through the read-only path.
+template <bool VEC, bool STREAM>
+__device__ __forceinline__ float4 p2_quad(const float* p, int k, int n,
+                                          bool ok) {
+  if (VEC) {
+    if (!ok || k >= n) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* q = reinterpret_cast<const float4*>(p + k);
+    return STREAM ? __ldcs(q) : __ldg(q);
   }
+  float e[4];
 #pragma unroll
-  for (int q = 0; q < P2_OUT; ++q) {
-    const int o = threadIdx.x + q * P2_NT;
-    if (o < nout) ps[o / bt][o % bt] = acc[q];
-  }
-  __syncthreads();
-  // y[b, i] = sum_b' where(b' == b, P[b*m + i, b'], 0)
-  for (int r = threadIdx.x; r < P2_ROWS; r += P2_NT) {
-    const long long g = r0 + r;
-    if (g < rows) {
-      const int b = (int)(g / a.m);
-      float s = 0.f;
-      for (int bb = 0; bb < bt; ++bb) s += bb == b ? ps[r][bb] : 0.f;
-      a.y[g] = s;
+  for (int i = 0; i < 4; ++i)
+    e[i] = ok && k + i < n ? (STREAM ? __ldcs(p + k + i) : __ldg(p + k + i))
+                           : 0.f;
+  return make_float4(e[0], e[1], e[2], e[3]);
+}
+
+// One 32-column chunk: A holds rows g, g+8 at columns 4t.., 16+4t..
+// (fragment registers a0..a3 over the 4 k-steps), B[j] vector 8j+g at
+// the same columns (b0, b1).  Each k-step's lo*hi, hi*lo and hi*hi go
+// into a zeroed fragment; f32 adds fold the 4 fragments into acc in
+// order.
+template <int NT>
+__device__ __forceinline__ void p2_chunk(const float4 (&A)[4],
+                                         const float4 (&B)[NT][2],
+                                         float (&acc)[NT][4]) {
+  unsigned ah[4][4], al[4][4];  // [k-step][fragment register]
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      tf32_split(lane_of(A[q], s), ah[s][q], al[s][q]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float c[4][4] = {};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      unsigned bh0, bl0, bh1, bl1;
+      tf32_split(lane_of(B[j][0], s), bh0, bl0);
+      tf32_split(lane_of(B[j][1], s), bh1, bl1);
+      mma_tf32(c[s], al[s], bh0, bh1);
+      mma_tf32(c[s], ah[s], bl0, bl1);
+      mma_tf32(c[s], ah[s], bh0, bh1);
     }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      acc[j][q] += ((c[0][q] + c[1][q]) + c[2][q]) + c[3][q];
   }
 }
 
-constexpr int P3_ROWS = 8;
-constexpr int P3_NC = 128;  // columns per chunk (a power of two: tree sum)
-constexpr int P3_NT = 256;
-
-__global__ void __launch_bounds__(P3_NT) probe_vpu_kernel(const ProbeArgs a) {
-  __shared__ float prod[P3_ROWS][P3_NC];
-  __shared__ float vs[P3_NC];
-  const int b = blockIdx.y, i0 = blockIdx.x * P3_ROWS, m = a.m, n = a.n;
-  const float* E = a.E + (size_t)b * m * n;
-  const float* v = a.v + (size_t)b * n;
-  float acc = 0.f;  // row threadIdx.x's sum (threads < P3_ROWS)
-  for (int j0 = 0; j0 < n; j0 += P3_NC) {
-    if (threadIdx.x < P3_NC) {
-      const int j = j0 + threadIdx.x;
-      vs[threadIdx.x] = j < n ? v[j] : 0.f;
+// NT n-tiles of 8 vectors (bt <= 8 NT; vectors past bt are zeros).  At
+// bt <= 8, 64 registers a thread: 8 blocks of 4 warps on each SM.
+template <bool VEC, int NT>
+__global__ void __launch_bounds__(P2_NTH, NT == 1 ? 8 : 1)
+    probe_pairs_kernel(const ProbeArgs a) {
+  __shared__ float part[P2_KW][16];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3, n = a.n;
+  const long long R = (long long)a.bt * a.m;
+  const long long r0 = (long long)blockIdx.x * 16;
+  const bool ok0 = r0 + g < R, ok8 = r0 + g + 8 < R;
+  const float* e0 = a.E + (ok0 ? (r0 + g) * n : 0);
+  const float* e8 = a.E + (ok8 ? (r0 + g + 8) * n : 0);
+  float acc[NT][4] = {};
+  // warp w takes the chunks w, w + 4, ...
+  for (int k1 = w * P2_KC + 4 * t; k1 - 4 * t < n; k1 += P2_KW * P2_KC) {
+    const int k2 = k1 + 16;
+    const float4 A[4] = {p2_quad<VEC, true>(e0, k1, n, ok0),
+                         p2_quad<VEC, true>(e8, k1, n, ok8),
+                         p2_quad<VEC, true>(e0, k2, n, ok0),
+                         p2_quad<VEC, true>(e8, k2, n, ok8)};
+    float4 B[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const bool okv = 8 * j + g < a.bt;
+      const float* vr = a.v + (okv ? (size_t)(8 * j + g) * n : 0);
+      B[j][0] = p2_quad<VEC, false>(vr, k1, n, okv);
+      B[j][1] = p2_quad<VEC, false>(vr, k2, n, okv);
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < P3_ROWS * P3_NC; i += P3_NT) {
-      const int r = i / P3_NC, c = i % P3_NC, row = i0 + r, j = j0 + c;
-      prod[r][c] = (row < m && j < n) ? E[(size_t)row * n + j] * vs[c] : 0.f;
-    }
-    __syncthreads();
-    for (int s = P3_NC / 2; s > 0; s >>= 1) {
-      for (int i = threadIdx.x; i < P3_ROWS * s; i += P3_NT) {
-        const int r = i / s, c = i % s;
-        prod[r][c] += prod[r][c + s];
-      }
-      __syncthreads();
-    }
-    if (threadIdx.x < P3_ROWS) acc += prod[threadIdx.x][0];
-    __syncthreads();  // the next chunk overwrites vs and prod
+    p2_chunk<NT>(A, B, acc);
   }
-  if (threadIdx.x < P3_ROWS && i0 + threadIdx.x < m)
-    a.y[(size_t)b * m + i0 + threadIdx.x] = acc;
+  // Diagonal select from the accumulator fragment: thread (g, t) holds
+  // rows g (registers 0, 1) and g + 8 (2, 3) at vectors 8j + 2t and
+  // 8j + 2t + 1; row G keeps vector b' = G / m only.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long G = r0 + g + 8 * h;
+    if (G >= R) continue;
+    const int b = (int)(G / a.m);
+    if (((b & 7) >> 1) != t) continue;
+    float val = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)  // constant indices: acc stays in registers
+      if (j == (b >> 3)) val = b & 1 ? acc[j][2 * h + 1] : acc[j][2 * h];
+    part[w][g + 8 * h] = val;
+  }
+  __syncthreads();
+  if (threadIdx.x < 16 && r0 + threadIdx.x < R) {
+    float s = part[0][threadIdx.x];
+#pragma unroll
+    for (int k = 1; k < P2_KW; ++k) s += part[k][threadIdx.x];
+    a.y[r0 + threadIdx.x] = s;
+  }
+}
+
+// ---- P3 ---------------------------------------------------------------
+constexpr int P3_WARPS = 8;  // rows per block, one warp each
+constexpr int P3_U = 8;      // 16-byte loads of E (and of v) per lane
+
+template <bool VEC>
+__global__ void __launch_bounds__(P3_WARPS * 32)
+    probe_vpu_kernel(const ProbeArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * P3_WARPS + (threadIdx.x >> 5);
+  if (row >= a.m) return;  // no barrier follows
+  const int b = blockIdx.y, n = a.n;
+  const float* e = a.E + ((size_t)b * a.m + row) * n;
+  const float* v = a.v + (size_t)b * n;
+  float s = 0.f;
+  if (VEC) {
+    const int nq = n >> 2;
+    const float4* e4 = reinterpret_cast<const float4*>(e);
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+    for (int q0 = 0; q0 < nq; q0 += 32 * P3_U) {
+      float4 x[P3_U], y[P3_U];
+#pragma unroll
+      for (int u = 0; u < P3_U; ++u) {
+        const int q = q0 + lane + 32 * u;
+        x[u] = q < nq ? __ldcs(e4 + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+        y[u] = q < nq ? __ldg(v4 + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < P3_U; ++u) {
+        s += __fmul_rn(x[u].x, y[u].x);
+        s += __fmul_rn(x[u].y, y[u].y);
+        s += __fmul_rn(x[u].z, y[u].z);
+        s += __fmul_rn(x[u].w, y[u].w);
+      }
+    }
+  } else {
+    constexpr int U = 4 * P3_U;
+    for (int j0 = 0; j0 < n; j0 += 32 * U) {
+      float x[U], y[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + lane + 32 * u;
+        x[u] = j < n ? __ldcs(e + j) : 0.f;
+        y[u] = j < n ? __ldg(v + j) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) s += __fmul_rn(x[u], y[u]);
+    }
+  }
+  s = lpbox::warp_sum(s);
+  if (lane == 0) a.y[(size_t)b * a.m + row] = s;
 }
 
 bool valid(const ProbeArgs& a) {
   return a.E && a.v && a.y && a.bt >= 1 && a.m >= 1 && a.n >= 1;
+}
+
+// 16-byte copies and loads need n % 4 == 0 and 16-byte aligned operands.
+bool vec_ok(const ProbeArgs& a) {
+  return a.n % 4 == 0 && reinterpret_cast<uintptr_t>(a.E) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+}
+
+template <bool VEC>
+void pairs_launch(const ProbeArgs& a, unsigned tiles, cudaStream_t s) {
+  const int nt = (a.bt + 7) / 8;
+  if (nt == 1)
+    probe_pairs_kernel<VEC, 1><<<tiles, P2_NTH, 0, s>>>(a);
+  else if (nt == 2)
+    probe_pairs_kernel<VEC, 2><<<tiles, P2_NTH, 0, s>>>(a);
+  else if (nt <= 4)
+    probe_pairs_kernel<VEC, 4><<<tiles, P2_NTH, 0, s>>>(a);
+  else
+    probe_pairs_kernel<VEC, 8><<<tiles, P2_NTH, 0, s>>>(a);
 }
 
 }  // namespace
@@ -185,19 +338,25 @@ LPBOX_API int lpbox_probe_batched(const void* args, void* stream) {
 
 LPBOX_API int lpbox_probe_pairs(const void* args, void* stream) {
   const ProbeArgs& a = *static_cast<const ProbeArgs*>(args);
-  const long long tiles =
-      ((long long)a.bt * a.m + P2_ROWS - 1) / P2_ROWS;
+  const long long tiles = ((long long)a.bt * a.m + 15) / 16;
   if (!valid(a) || a.bt > P2_BTMAX || tiles > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  probe_pairs_kernel<<<(unsigned)tiles, P2_NT, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_ok(a))
+    pairs_launch<true>(a, (unsigned)tiles, s);
+  else
+    pairs_launch<false>(a, (unsigned)tiles, s);
   return (int)cudaGetLastError();
 }
 
 LPBOX_API int lpbox_probe_vpu(const void* args, void* stream) {
   const ProbeArgs& a = *static_cast<const ProbeArgs*>(args);
   if (!valid(a) || a.bt > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.m + P3_ROWS - 1) / P3_ROWS, a.bt);
-  probe_vpu_kernel<<<grid, P3_NT, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const dim3 grid((a.m + P3_WARPS - 1) / P3_WARPS, a.bt);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec_ok(a))
+    probe_vpu_kernel<true><<<grid, P3_WARPS * 32, 0, s>>>(a);
+  else
+    probe_vpu_kernel<false><<<grid, P3_WARPS * 32, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

@@ -139,13 +139,23 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+#: (library, size function, struct) triples whose sizes agreed
+_STRUCTS_CHECKED = set()
+
+
 def check_struct(lib: ctypes.CDLL, size_fn: str, struct) -> None:
     """Refuse to launch if the ctypes mirror of an argument struct does
-    not have the C struct's size."""
+    not have the C struct's size.  A pair that agreed is not asked again:
+    ``library()`` loads one library per process, so the sizes cannot
+    change, and a launch saves the ctypes call."""
+    key = (lib, size_fn, struct)
+    if key in _STRUCTS_CHECKED:
+        return
     want = getattr(lib, size_fn)()
     if ctypes.sizeof(struct) != want:
         raise RuntimeError(f"{struct.__name__} is {ctypes.sizeof(struct)} "
                            f"bytes, the C struct {want}")
+    _STRUCTS_CHECKED.add(key)
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -10,7 +10,10 @@ fastest per call:
 * ``pairs`` (P2): one 2-D product of all bt*m rows of E against all bt
   vectors, (bt*m, n) @ (n, bt) -> (bt, m, bt), then the diagonal b = b'
   selected and summed: bt times P1's flops, as the TPU probe measured;
-* ``vpu`` (P3): a broadcast multiply E * v[:, None, :] and a row sum.
+  the kernel runs the product on the tensor cores in three TF32 passes
+  (hi*hi + hi*lo + lo*hi of each operand's split a = hi + lo);
+* ``vpu`` (P3): a broadcast multiply E * v[:, None, :] and a row sum,
+  each product rounded on its own.
 
     python -m lpbox_admm_tpu_torch.scripts.probe_dot [--device cpu]
 
@@ -42,7 +45,7 @@ TOL = 1e-5
 #: named beside it, whose launchers refuse the same shapes; here they
 #: refuse them before any launch, and on the CPU too
 P1_NMAX = 12288      # P1_NMAX: P1 keeps v in 48 KB of shared memory
-P2_BTMAX = 64        # P2_BTMAX: P2 holds all bt sums in registers
+P2_BTMAX = 64        # P2_BTMAX: P2 keeps 8 n-tiles of 8 vectors
 GRID_Y_MAX = 65535   # P1 and P3 put the instance on grid.y
 #: the probe's shape, as the JAX script has it, and its timed calls
 SHAPE = (8, 256, 256)
@@ -131,11 +134,12 @@ def launch(name: str, E: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def matvec(name: str, E: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """y = E v by the formulation ``name``: its kernel on a CUDA tensor,
-    its plain version on a CPU tensor."""
-    check_shapes(name, E, v)
+    """y = E v by the formulation ``name``: its kernel on a CUDA tensor
+    (``launch`` checks the operands), its plain version on a CPU
+    tensor."""
     if E.is_cuda:
         return launch(name, E, v)
+    check_shapes(name, E, v)
     if E.device.type == "cpu":
         return PLAIN[name](E, v)
     raise ValueError(f"no {name} for device {E.device}")

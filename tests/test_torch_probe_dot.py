@@ -10,9 +10,14 @@ run in a namespace that binds ``jax``, ``jnp`` and the shape, through
 plain version of the same formulation, against the float64 einsum on
 the same seed-made inputs: 1e-5 of max |ref| (f32 sums of n products in
 another order).
+
+P2's kernel runs its product on the TF32 tensor cores in three passes;
+``tf32_rna`` emulates the card's rounding on the bits, so the accuracy
+argument for three passes (and against one) is checked here.
 """
 
 import ast
+import ctypes
 from pathlib import Path
 
 import jax
@@ -22,6 +27,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from lpbox_admm_tpu_torch.kernels import build
 from lpbox_admm_tpu_torch.scripts import probe_dot
 
 import torch_port_util  # noqa: F401  (one intra-op thread per worker)
@@ -92,3 +98,75 @@ def test_probe_refuses_shapes_before_launch(name, shape, match):
     for fn in (probe_dot.launch, probe_dot.matvec):
         with pytest.raises(ValueError, match="device"):
             fn(name, E, v)
+
+
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on the bits: keep 10 of f32's 23 mantissa
+    bits, rounding to nearest with ties away from zero (add half of the
+    dropped range to the magnitude, then clear it)."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10                      # TF32's spacing at 1
+    x = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23,
+                  1 + 3 * ulp / 2, 3.0], np.float32)
+    want = np.array([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0], np.float32)
+    assert np.array_equal(tf32_rna(x), want)
+    a = np.random.RandomState(0).randn(4096).astype(np.float32)
+    hi = tf32_rna(a)
+    lo = tf32_rna(a - hi)
+    for t in (hi, lo):
+        assert not (t.view(np.uint32) & np.uint32(0x1FFF)).any()
+    # a - hi is exact in f32; lo keeps 11 of its bits
+    assert np.all(np.abs(a - hi) <= np.abs(a) * 2.0 ** -11)
+    assert np.all(np.abs(a.astype(np.float64) - hi - lo)
+                  <= np.abs(a) * 2.0 ** -21)
+
+
+@pytest.mark.parametrize("shape", [(8, 256, 256), (3, 10, 260), (64, 16, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_pairs_needs_three_tf32_passes(shape):
+    """P2's product on the TF32 tensor cores: one pass (both operands
+    rounded to TF32) misses 1e-5 of max |ref| (6.0e-5 at the probe's
+    shape); hi*hi + hi*lo + lo*hi stays three orders under it (1.4e-8).
+    Products of TF32 values are exact in f64, so this is the rounding
+    of the operands alone; the card's f32 accumulation adds what P1's
+    f32 sums add."""
+    E, v = probe_dot.make_inputs(*shape)
+    f64 = lambda a, b: np.einsum("bmn,bn->bm", a.astype(np.float64),
+                                 b.astype(np.float64))
+    want = f64(E, v)
+    scale = np.abs(want).max()
+    Eh, vh = tf32_rna(E), tf32_rna(v)
+    El, vl = tf32_rna(E - Eh), tf32_rna(v - vh)
+    one = np.abs(f64(Eh, vh) - want).max() / scale
+    three = np.abs(f64(El, vh) + f64(Eh, vl) + f64(Eh, vh) - want).max() \
+        / scale
+    assert one > probe_dot.TOL
+    assert three <= probe_dot.TOL / 100
+
+
+class _SizeLib:
+    """Stands in for the kernel library: a struct-size entry point that
+    counts its calls."""
+
+    def __init__(self, size):
+        self.size, self.calls = size, 0
+
+    def lpbox_probe_args_size(self):
+        self.calls += 1
+        return self.size
+
+
+def test_check_struct_asks_the_library_once():
+    ok = _SizeLib(ctypes.sizeof(probe_dot._Args))
+    for _ in range(3):
+        build.check_struct(ok, "lpbox_probe_args_size", probe_dot._Args)
+    assert ok.calls == 1
+    bad = _SizeLib(ctypes.sizeof(probe_dot._Args) + 8)
+    for calls in (1, 2):     # a refusal is not remembered: it stays one
+        with pytest.raises(RuntimeError, match="the C struct"):
+            build.check_struct(bad, "lpbox_probe_args_size", probe_dot._Args)
+        assert bad.calls == calls
