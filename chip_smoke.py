@@ -26,14 +26,23 @@ and, on the packed-symmetric G^{-1} route, K4; and by
 records with ``core.lp`` windows (K1 cannot hold that shape) and whose
 tail runs in K1 when the compacted bucket fits it.
 
+K1 takes CA's 0/1 E as an exact one-byte copy: resident in shared
+memory at CA-500 (the ``int8-resident`` route of the plain and the l2f
+solve), streamed at the xl l2f tail's bucket (``int8-stream``); each
+K1 check launches the same window again on the f32-stream route (E as
+stored) and requires the same bits in every output, and the main path's
+routes are required.
+
 Phases, cheapest first, each under its own deadline and a watchdog that
 turns a hang into a traceback and a non-zero exit: device, build (one
-nvcc process per source, started together), K1 (with planted faults
-that its limits must catch) and K2 against their plain PyTorch versions
-on the card, P1-P3 against theirs and the float64 einsum (with a
-planted fault) and the probe's entry point, the plain solve, the l2f
-solve, K1's exit for done instances from the plain solve's end state,
-the xl instances, K3 (with two planted faults) and K4 against their
+nvcc process per source, started together; K1's and K3's registers and
+spills from ptxas, K3 at the xl block without spills), K1 (with planted
+faults that its limits must catch, and one CA instance with an entry of
+0.5 that must take the f32-stream route) and K2 against their plain
+PyTorch versions on the card, P1-P3 against theirs and the float64
+einsum (with a planted fault) and the probe's entry point, the plain
+solve, the l2f solve, K1's exit for done instances from the plain
+solve's end state, the xl instances, K3 (with two planted faults) and K4 against their
 plain versions on the first block of 8, the xl solve, a packed-symmetric
 window, the xl l2f solve, K2 and K1 against their plain versions on the
 operands the xl l2f solve gave them (its first policy window's 131 072
@@ -41,8 +50,10 @@ trajectory rows; the tail's start state in its compacted bucket, with a
 planted fault), kernel timings (K1 also at that bucket); the whole
 script under 600 s.
 Fails on a build or launch error, a kernel/plain disagreement, a
+one-byte K1 route that differs from the f32 route in one bit, a
 non-finite value, an infeasible instance, a kernel that its path did not
-launch, an l2f mean objective gap above +2% against the plain solve, an
+launch, a K1 launch of the main path on another route than its data
+gives, an l2f mean objective gap above +2% against the plain solve, an
 xl mean objective more than 10% worse than the JAX package's TPU record,
 or an xl l2f mean objective more than 10% worse than the xl plain
 solve's.  Prints one progress line per phase, a JSON ``kernels`` line,
@@ -154,6 +165,44 @@ def card_line():
     return res.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(text):
+    """Registers and spill bytes of K1's and K3's instances, from the
+    build's ``ptxas -v`` output (empty for a cached build)."""
+    import re
+    label = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for|$)", line.strip())
+        if m:
+            name = m.group(1)
+            k3 = re.search(r"sweep_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+            k1 = re.search(r"lp_window_kernelI(f|13__nv_bfloat16|a)Lb([01])E",
+                           name)
+            cur = (f"K3 sweep_kernel<{label[k3.group(1)]}, RPT={k3.group(2)}>"
+                   if k3 else
+                   f"K1 lp_window_kernel<{label[k1.group(1)]}, "
+                   f"{'resident' if k1.group(2) == '1' else 'stream'}>"
+                   if k1 else None)
+            if cur:
+                out.setdefault(cur, {"registers": None, "stack": None,
+                                     "spill_stores": None,
+                                     "spill_loads": None})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur]["stack"] = int(m.group(1))
+            out[cur]["spill_stores"] = int(m.group(2))
+            out[cur]["spill_loads"] = int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
 def cuda_ms(fn, reps):
     """Mean milliseconds of ``fn`` on the card (CUDA events, after one
     warm-up call)."""
@@ -254,14 +303,75 @@ def k1_planted(name, s_f, s_p, cfg):
             f"{name}")
 
 
+K1_FIELDS = ("x", "z1", "z2", "z4", "y1", "y2", "y3", "ex", "obj_ring",
+             "obj_count", "done", "cur_obj", "best_bin_obj", "best_sol",
+             "it")
+
+
+def k1_on(E_op, s, prob, cfg, window, skip_cvg_at=None, record=False,
+          nfactor=None, fused_lp=None):
+    """``lp_window_fused`` with K1 reading ``E_op`` (its dtype picks the
+    route) instead of the operand that E's data gives; not counted in
+    the path's launches."""
+    a = fused_lp.window_inputs(s, prob, cfg, nfactor)._replace(E=E_op)
+    out = fused_lp.window_cuda(a, cfg, s.it, window, skip_cvg_at, record)
+    return fused_lp.window_state(s, prob, cfg, window, out, record)
+
+
+class K1Pair:
+    """``lp_window_fused`` on the route its data decides, each launch
+    repeated on the f32-stream route (E as stored, the streaming design) and
+    required to give the same bits in every output, trajectories
+    included: the one-byte routes decode every entry exactly and keep the
+    order of the sums.  ``routes`` counts the routes it saw."""
+
+    def __init__(self, fused_lp, want):
+        self.fused_lp, self.want, self.routes = fused_lp, want, {}
+
+    def __call__(self, s, prob, cfg, window, **kw):
+        fl = self.fused_lp
+        before = dict(fl.LAUNCHES)
+        k = fl.lp_window_fused(s, prob, cfg, window, **kw)
+        launched = [r for r in fl.E_ROUTES if fl.LAUNCHES[r] != before[r]]
+        require(launched == [self.want],
+                f"K1 launched on {launched}, expected {self.want}")
+        route = self.want
+        self.routes[route] = self.routes.get(route, 0) + 1
+        f = k1_on(prob.E, s, prob, cfg, window, fused_lp=fl, **kw)
+        k1_same_bits(k, f, kw.get("record"), f"K1 {route} vs f32-stream")
+        return k
+
+
+def k1_same_bits(k, f, record, what):
+    """Every output of two K1 windows equal bit for bit."""
+    if record:
+        (k, tk), (f, tf) = k, f
+        require(torch_equal(tk, tf), f"{what}: trajectory bits")
+    diff = [n for n in K1_FIELDS
+            if not torch_equal(getattr(k, n), getattr(f, n))]
+    require(not diff, f"{what}: bits differ in {diff}")
+
+
+def torch_equal(a, b):
+    import torch
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    return torch.equal(a, b)
+
+
 def k1_checks(tp, cfg, fused_lp, lp, woodbury):
     """K1 against its plain version on the card at the main path's
     shapes: the 128-instance batch, m side and n side at the tail's
     compacted (256, 256) bucket, and the policy phase's recorded
-    100-iteration window held slot by slot.  Returns the errors and the
+    100-iteration window held slot by slot.  Every launch runs on the
+    int8-resident route (CA's 0/1 E in one byte, resident in shared
+    memory) and again on the f32-stream route, which must give the same
+    bits.  A CA instance with one entry of E set to 0.5 must take the
+    f32-stream route and meet the limit there.  Returns the errors, the
     recorded window's B*n trajectory rows (K2's input shape on the main
-    path)."""
+    path) and the comparison."""
     res = {}
+    fused = K1Pair(fused_lp, "int8-resident")
 
     def compare(name, s_k, s_p, c=cfg, quiet=False):
         errs = k1_errors(s_k, s_p, c)
@@ -285,21 +395,38 @@ def k1_checks(tp, cfg, fused_lp, lp, woodbury):
 
     s0 = lp.init_state(tp, cfg)
     p1 = fused_lp.lp_window_plain(s0, tp, cfg, 1, skip_cvg_at=0)
-    compare("mside-1it", fused_lp.lp_window_fused(s0, tp, cfg, 1,
-                                                  skip_cvg_at=0), p1)
+    compare("mside-1it", fused(s0, tp, cfg, 1, skip_cvg_at=0), p1)
     step = cfg.rho_change_step
     k1_planted("rho of the next schedule step",
-               fused_lp.lp_window_fused(s0.replace(it=step), tp, cfg, 1,
-                                        skip_cvg_at=step), p1, cfg)
+               fused(s0.replace(it=step), tp, cfg, 1, skip_cvg_at=step), p1,
+               cfg)
     k1_planted("gamma 0.1% high",
-               fused_lp.lp_window_fused(s0, tp,
-                                        cfg.replace(gamma0=cfg.gamma0 * 1.001),
-                                        1, skip_cvg_at=0), p1, cfg)
+               fused(s0, tp, cfg.replace(gamma0=cfg.gamma0 * 1.001), 1,
+                     skip_cvg_at=0), p1, cfg)
     p20 = fused_lp.lp_window_plain(s0, tp, cfg, 20, skip_cvg_at=0)
-    for name, c in (("mside-20it", cfg),
-                    ("mside-20it-bf16E", cfg.replace(matvec_dtype="bfloat16"))):
-        compare(name, fused_lp.lp_window_fused(s0, tp, c, 20, skip_cvg_at=0),
-                p20)
+    bcfg = cfg.replace(matvec_dtype="bfloat16")
+    for name, c in (("mside-20it", cfg), ("mside-20it-bf16E", bcfg)):
+        compare(name, fused(s0, tp, c, 20, skip_cvg_at=0), p20)
+    # the bf16 stream of the same E: the same bits again
+    import torch
+    k1_same_bits(k1_on(tp.E.to(torch.bfloat16), s0, tp, cfg, 20,
+                       skip_cvg_at=0, fused_lp=fused_lp),
+                 fused_lp.lp_window_fused(s0, tp, cfg, 20, skip_cvg_at=0),
+                 False, "K1 bf16-stream vs int8-resident")
+    # one CA instance with an entry of E that is not an integer
+    half = tp.replace(**{f: getattr(tp, f)[:1].clone() for f in (
+        "b", "E", "f", "row_mask", "var_mask")})
+    half.E[0, 0, 0] = 0.5
+    require(fused_lp.e_route(fused_lp.window_operand(half.E, cfg))
+            == "f32-stream",
+            "K1: an E entry of 0.5 takes the f32-stream route")
+    before = fused_lp.LAUNCHES["f32-stream"]
+    sh = lp.init_state(half, cfg)
+    compare("f32-stream-half-entry-20it",
+            fused_lp.lp_window_fused(sh, half, cfg, 20, skip_cvg_at=0),
+            fused_lp.lp_window_plain(sh, half, cfg, 20, skip_cvg_at=0))
+    require(fused_lp.LAUNCHES["f32-stream"] == before + 1,
+            "K1: the 0.5-entry instance launched on f32-stream")
 
     # The policy phase's recorded window, held over all its 100 slots.
     # Around iterations 60-80 the iteration amplifies a difference by
@@ -308,10 +435,10 @@ def k1_checks(tp, cfg, fused_lp, lp, woodbury):
     # state at every SEG-th iteration (a shorter launch from the same
     # start) and is compared with those slots of the one long launch.
     SEG = 5
-    k, tk = fused_lp.lp_window_fused(s0, tp, cfg, 100, record=True)
+    k, tk = fused(s0, tp, cfg, 100, record=True)
     seg_errs = []
     for t0 in range(0, 100, SEG):
-        st = s0 if t0 == 0 else fused_lp.lp_window_fused(s0, tp, cfg, t0)
+        st = s0 if t0 == 0 else fused(s0, tp, cfg, t0)
         if t0:
             require(bool((tk[..., t0 - 1] == st.x).all()),
                     f"K1 record-100: slot {t0 - 1} is not the kernel's "
@@ -329,14 +456,16 @@ def k1_checks(tp, cfg, fused_lp, lp, woodbury):
     # n side at a compacted (256, 256) shape after one recorded window
     sc, pc, _ = lp.compact(k, tp, cfg, 256, m_new=256)
     nf = woodbury.factorize_nside(pc.E, sc.free, lp._wb_ratio(cfg))
-    kn = fused_lp.lp_window_fused(sc, pc, cfg, 20, nfactor=(nf.hinv, nf.ete))
+    kn = fused(sc, pc, cfg, 20, nfactor=(nf.hinv, nf.ete))
     pn = fused_lp.lp_window_plain(sc, pc, cfg, 20, nfactor=(nf.hinv, nf.ete))
     compare("nside-256x256-20it", kn, pn)
     # incumbent stride 8 from the recorded window's end state
     c8 = cfg.replace(incumbent_stride=8)
-    k8 = fused_lp.lp_window_fused(k, tp, c8, 20)
+    k8 = fused(k, tp, c8, 20)
     p8 = fused_lp.lp_window_plain(k, tp, c8, 20)
     compare("stride8-20it", k8, p8, c8)
+    log(f"  K1 checks: routes {fused.routes}, each launch equal bit for "
+        "bit to its f32-stream launch")
     return res, rows, compare
 
 
@@ -348,9 +477,10 @@ def k1_done_check(st, prob, cfg, fused_lp, compare):
     x, y3 = f_eff, every trajectory slot = x)."""
     d = st.done
     require(bool(d.any()), "done check: some instance is done")
+    fused = K1Pair(fused_lp, "int8-resident")
     for record in (False, True):
         name = f"done-freezing{'-record' if record else ''}-20it"
-        k = fused_lp.lp_window_fused(st, prob, cfg, 20, record=record)
+        k = fused(st, prob, cfg, 20, record=record)
         p = fused_lp.lp_window_plain(st, prob, cfg, 20, record=record)
         if record:
             (k, tk), (p, tpl) = k, p
@@ -403,12 +533,13 @@ def xl_tail_k1_check(st, prob, cfg, nfactor, fused_lp, compare, W=20):
     ones."""
     B, m, n = prob.E.shape
     side = "nside" if nfactor is not None else "mside"
-    fused = lambda s, w, **kw: fused_lp.lp_window_fused(
-        s, prob, cfg, w, nfactor=nfactor, **kw)
+    pair = K1Pair(fused_lp, "int8-stream")
+    fused = lambda s, w, **kw: pair(s, prob, cfg, w, nfactor=nfactor, **kw)
     plain = lambda s, w, **kw: fused_lp.lp_window_plain(
         s, prob, cfg, w, nfactor=nfactor, **kw)
     log(f"  K1 at the xl tail bucket: ({B}, {m}, {n}) {side}, it {st.it}, "
-        f"{int(st.done.sum())} done")
+        f"{int(st.done.sum())} done, route "
+        f"{fused_lp.e_route(fused_lp.window_operand(prob.E, cfg))}")
     p1 = plain(st, 1)
     compare(f"xl-tail-{side}-1it", fused(st, 1), p1, cfg)
     nxt = (st.it // cfg.rho_change_step + 1) * cfg.rho_change_step
@@ -434,6 +565,8 @@ def xl_tail_k1_check(st, prob, cfg, nfactor, fused_lp, compare, W=20):
         f"trajectory slots max abs err {max(slot_errs):.2e}; state in x "
         "units, worst over the iterations: "
         + " ".join(f"{f}={e:.2e}" for f, e in worst.items()))
+    log(f"  K1 xl tail: routes {pair.routes}, each launch equal bit for bit "
+        "to its f32-stream launch")
     amp = k1_errors(plain(fused(st, 1), W - 1), plain(p1, W - 1), cfg)
     straight = k1_errors(fused(st, W), plain(st, W), cfg)
     log(f"  K1 xl tail, not held: the kernel's and the plain version's "
@@ -748,10 +881,18 @@ def main():
         info = dict(build.BUILD_INFO)
         log(f"  nvcc build: {info['seconds']:.2f} s "
             f"({'cached' if info.get('cached') else 'cold'}) -> {so}")
-        for line in str(info.get("ptxas", "")).splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"    ptxas: {line.strip()}")
+        ptxas = ptxas_report(str(info.get("ptxas", "")))
+        for name, r in ptxas.items():
+            log(f"    ptxas: {name}: {r['registers']} registers, stack "
+                f"frame {r['stack']} B, spill stores {r['spill_stores']} B, "
+                f"loads {r['spill_loads']} B")
+        if not info.get("cached"):
+            path_k3 = ptxas.get("K3 sweep_kernel<bf16, RPT=4>")
+            require(path_k3 is not None and path_k3["spill_stores"] == 0
+                    and path_k3["spill_loads"] == 0,
+                    f"K3 at the xl block spills no registers: {path_k3}")
     summary["build_s"] = info["seconds"]
+    summary["ptxas"] = ptxas
     summary["build_phase_s"] = ph.seconds
 
     with Phase("generate", 120) as ph:
@@ -789,7 +930,7 @@ def main():
     summary["probe_dot_s"] = ph.seconds
 
     # --- the main path: counts from 0, read after the l2f solve ---------
-    fused_lp.LAUNCHES = 0
+    fused_lp.LAUNCHES.update(dict.fromkeys(fused_lp.E_ROUTES, 0))
     fused_policy.LAUNCHES = 0
     with Phase("plain-solve", 180) as ph:
         st = fused_lp.solve_fused(prob, cfg, max_iters=cfg.max_iters,
@@ -803,10 +944,14 @@ def main():
         log(f"  plain: wall {plain_s:.2f} s, it {st.it}, done "
             f"{n_done}/{BATCH}, mean obj {plain_obj.mean().item():.2f}, "
             f"infeasible instances {int((plain_inf > 0).sum())}, "
-            f"K1 launches {fused_lp.LAUNCHES}")
+            f"K1 launches {sum(fused_lp.LAUNCHES.values())}")
         require(finite(plain_obj, sol), "plain: finite")
         require(int((plain_inf > 0).sum()) == 0, "plain: 0 infeasible")
-    plain_launches = fused_lp.LAUNCHES
+        plain_routes = {k: v for k, v in fused_lp.LAUNCHES.items() if v}
+        plain_launches = sum(plain_routes.values())
+        log(f"  plain: K1 routes {plain_routes}")
+        require(plain_launches > 0 and set(plain_routes) == {"int8-resident"},
+                f"plain solve: every K1 launch int8-resident: {plain_routes}")
     summary.update(plain_s=plain_s, plain_it=st.it, plain_done=n_done,
                    plain_mean_obj=plain_obj.mean().item())
 
@@ -821,7 +966,8 @@ def main():
         l2f_s = time.perf_counter() - ph.t0
         gap = (out["obj"] - plain_obj) / plain_obj.abs()
         n_inf = int((out["infeasible"] > 0).sum())
-        launches = {"K1": fused_lp.LAUNCHES, "K2": fused_policy.LAUNCHES}
+        launches = {"K1": sum(fused_lp.LAUNCHES.values()),
+                    "K2": fused_policy.LAUNCHES}
         log(f"  l2f: wall {l2f_s:.2f} s, timings {tm}, it "
             f"{out['iterations']}, gap mean {gap.mean().item():+.4%} max "
             f"{gap.max().item():+.4%}, fixes/instance "
@@ -833,6 +979,12 @@ def main():
         require(gap.mean().item() <= 0.02, "l2f mean gap <= +2%")
         require(launches["K1"] > 0 and launches["K2"] > 0,
                 f"main path launched every kernel: {launches}")
+        l2f_routes = {k: v for k, v in fused_lp.LAUNCHES.items() if v}
+        log(f"  main path K1 routes {l2f_routes}")
+        require(tm["policy_e_route"] == tm["tail_e_route"] == "int8-resident",
+                f"l2f: K1 E routes int8-resident: {tm}")
+        require(l2f_routes == {"int8-resident": launches["K1"]},
+                f"main path: every K1 launch int8-resident: {l2f_routes}")
     summary.update(l2f_s=l2f_s, l2f_timings=tm,
                    l2f_gap_mean=gap.mean().item(),
                    l2f_gap_max=gap.max().item(),
@@ -941,7 +1093,7 @@ def main():
 
     # --- the xl l2f solve: counts from 0, read after it --------------------
     del xst, xsol, ws
-    fused_lp.LAUNCHES = 0
+    fused_lp.LAUNCHES.update(dict.fromkeys(fused_lp.E_ROUTES, 0))
     fused_policy.LAUNCHES = 0
     with Phase("xl-l2f", 240) as ph, \
             FirstCall(l2f, "policy_scores_fused") as k2_in, \
@@ -956,7 +1108,8 @@ def main():
         torch.cuda.synchronize()
         xl2f_s = time.perf_counter() - ph.t0
         peak_l2f = torch.cuda.max_memory_allocated()
-        xl2f_launches = {"K1": fused_lp.LAUNCHES, "K2": fused_policy.LAUNCHES}
+        xl2f_launches = {"K1": sum(fused_lp.LAUNCHES.values()),
+                         "K2": fused_policy.LAUNCHES}
         xl2f_mean = xout["obj"].mean().item()
         xl2f_gap = (xl2f_mean - x_mean) / abs(x_mean)
         xl2f_inf = int((xout["infeasible"] > 0).sum())
@@ -982,6 +1135,13 @@ def main():
         require((xl2f_launches["K1"] > 0) == (xtm["tail_route"] == "k1"),
                 f"xl l2f: K1 launched exactly on the K1 tail route: "
                 f"{xl2f_launches}, {xtm['tail_route']}")
+        xl_routes = {k: v for k, v in fused_lp.LAUNCHES.items() if v}
+        log(f"  xl l2f K1 routes {xl_routes}, tail E route "
+            f"{xtm['tail_e_route']}")
+        if xtm["tail_route"] == "k1":
+            require(xtm["tail_e_route"] == "int8-stream" and xl_routes == {
+                "int8-stream": xl2f_launches["K1"]},
+                f"xl l2f tail: every K1 launch int8-stream: {xl_routes}")
         require(xl2f_inf == 0, "xl l2f: 0 infeasible")
         require(finite(xout["obj"], xout["solution"]), "xl l2f: finite")
         require(xl2f_gap <= XL_L2F_GAP,
@@ -1011,6 +1171,7 @@ def main():
                           max(k2_err, k2x_err))
         if tail_k1 is not None:
             summary["xl_tail_k1"] = xl_tail_k1_timing(*tail_k1, fused_lp)
+            kernels[0]["routes_xl_tail"] = summary["xl_tail_k1"]["routes"]
         kernels += xl_timings(k3_args, Gp, v4, s0x.ginv, fused_stream, symm,
                               {"K3": xl_launches["K3"],
                                "K4": sym_launches["K4"]}, k3_res, k4_res)
@@ -1037,11 +1198,21 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
     W = 100
     s0 = lp.init_state(prob, cfg)
     a = fused_lp.window_inputs(s0, prob, cfg)
-    run_k = lambda: fused_lp.window_cuda(a, cfg, 0, W, skip_cvg_at=0)
+    require(fused_lp.e_route(a.E) == "int8-resident",
+            "timed K1 window on the main path's route")
     run_p = lambda: fused_lp.window_plain(a, cfg, 0, W, skip_cvg_at=0)
-    out = run_k()
-    require(int(out.done.sum()) == 0, "timed K1 window runs all iterations")
-    k1_ms = cuda_ms(run_k, 5)
+    # the main path's route, and the two streams of the streaming design
+    k1_routes, k1_bytes_it = {}, {}
+    for E_op in (a.E, prob.E, prob.E.to(torch.bfloat16)):
+        ar = a._replace(E=E_op)
+        route = fused_lp.e_route(E_op)
+        run = lambda ar=ar: fused_lp.window_cuda(ar, cfg, 0, W, skip_cvg_at=0)
+        out = run()
+        require(int(out.done.sum()) == 0,
+                "timed K1 window runs all iterations")
+        k1_routes[route] = {"shape": [B, m, n], "ms": cuda_ms(run, 5)}
+        k1_bytes_it[route] = k1_route_bytes(route, B, m, n, cfg, W)
+    k1_ms = k1_routes["int8-resident"]["ms"]
     k1_plain_ms = cuda_ms(run_p, 2)
     k1_flops, k1_bytes = k1_work(a, out, cfg, 0, W)
     k1_bound = max(k1_flops / PEAK_F32_FLOPS, k1_bytes / PEAK_HBM_BYTES)
@@ -1064,9 +1235,12 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
     k2_bytes = rows.numel() * 4 + R * 4 + sum(
         t.numel() * 4 for t in packed)
     k2_bound = max(k2_flops / PEAK_F32_FLOPS, k2_bytes / PEAK_HBM_BYTES)
-    log(f"  K1 window (B={B}, m={m}, n={n}, {W} its): {k1_ms:.3f} ms, plain "
-        f"{k1_plain_ms:.3f} ms, bound {k1_bound * 1e3:.3f} ms "
-        f"({k1_flops:.3e} flop, {k1_bytes:.3e} B)")
+    log(f"  K1 window (B={B}, m={m}, n={n}, {W} its): {k1_ms:.3f} ms "
+        f"int8-resident, plain {k1_plain_ms:.3f} ms, bound "
+        f"{k1_bound * 1e3:.3f} ms ({k1_flops:.3e} flop, {k1_bytes:.3e} B); "
+        "per route: " + ", ".join(
+            f"{r} {v['ms']:.3f} ms, {k1_bytes_it[r]:.4g} B/it (closed form)"
+            for r, v in k1_routes.items()))
     log(f"  K2 ({R} rows): {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
         f"bound {k2_bound * 1e3:.3f} ms ({k2_flops:.3e} flop, "
         f"{k2_bytes:.3e} B)")
@@ -1081,7 +1255,7 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound * 1e3,
          "bound_by": "operations" if k1_flops / PEAK_F32_FLOPS
          >= k1_bytes / PEAK_HBM_BYTES else "bytes",
-         "library_ms": None},
+         "library_ms": None, "routes": k1_routes},
         {"name": "K2 policy_forward", "route": "cuda",
          "source": "lpbox_admm_tpu_torch/csrc/policy.cu",
          "replaces": "lpbox_admm_tpu/models/pallas_policy.py:152",
@@ -1108,26 +1282,50 @@ def k1_work(a, out, cfg, it0, W):
     return flops, nbytes
 
 
+def k1_route_bytes(route, B, m, n, cfg, W):
+    """Bytes one m-side K1 iteration moves on a route, in closed form: a
+    stream route reads E 3 times, once more every incumbent_stride-th
+    iteration, at its bytes per entry, and G^{-1} (m x m f32) once; the
+    resident route reads G^{-1} once and E once per W-iteration window."""
+    fac = 4.0 * m * m
+    if route == "int8-resident":
+        return B * (fac + m * n / W)
+    es = {"f32-stream": 4, "bf16-stream": 2, "int8-stream": 1}[route]
+    return B * ((3 + 1.0 / max(cfg.incumbent_stride, 1)) * m * n * es + fac)
+
+
 def xl_tail_k1_timing(st, prob, cfg, nfactor, fused_lp, W=100):
     """K1 at the xl l2f tail's bucket: one W-iteration window from the
     state the path handed K1, CUDA events over 3 launches after a warm-up
-    (the path's own windows are 1000 iterations long).  Instances that
-    stop inside the window leave their block early, so the time is that
-    of the slowest instance."""
+    (the path's own windows are 1000 iterations long), on the path's
+    route (int8-stream) and on the f32 stream of the streaming design.
+    Instances that stop inside the window leave their block early, so
+    the time is that of the slowest instance."""
     a = fused_lp.window_inputs(st, prob, cfg, nfactor)
-    run = lambda: fused_lp.window_cuda(a, cfg, st.it, W)
-    out = run()
-    ms = cuda_ms(run, 3)
     B, m, n = a.E.shape
+    routes, bytes_it = {}, {}
+    for E_op in (a.E, prob.E):
+        ar = a._replace(E=E_op)
+        route = fused_lp.e_route(E_op)
+        run = lambda ar=ar: fused_lp.window_cuda(ar, cfg, st.it, W)
+        out = run()
+        ms = cuda_ms(run, 3)
+        routes[route] = {"shape": [B, m, n], "ms": ms, "ms_per_it": ms / W}
+        if nfactor is None:
+            bytes_it[route] = k1_route_bytes(route, B, m, n, cfg, W)
+    ms = routes[fused_lp.e_route(a.E)]["ms"]
     res = {"shape": [B, m, n], "nside": nfactor is not None, "it0": st.it,
-           "iters": W, "ms": ms, "ms_per_it": ms / W,
+           "iters": W, "route": fused_lp.e_route(a.E), "ms": ms,
+           "ms_per_it": ms / W, "routes": routes,
            "done_before": int(st.done.sum()),
            "done_after": int(out.done.sum())}
     if nfactor is None:
         flops, nbytes = k1_work(a, out, cfg, st.it, W)
         res["bound_ms_if_none_stop"] = 1e3 * max(flops / PEAK_F32_FLOPS,
                                                  nbytes / PEAK_HBM_BYTES)
-    log("  K1 at the xl tail bucket: " + json.dumps(res))
+    log("  K1 at the xl tail bucket: " + json.dumps(res)
+        + "; bytes per iteration (closed form, k1_route_bytes): "
+        + json.dumps(bytes_it))
     return res
 
 

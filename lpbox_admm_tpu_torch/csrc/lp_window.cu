@@ -12,13 +12,28 @@
 //
 // Design.  One thread block per instance (grid = B, 512 threads); the
 // window's loop runs inside the block, and no block waits on another.
-// The TPU kernel keeps a block of instances' E and G^{-1} in VMEM; here
-// one CA-500 instance (E 512 KB f32 / 256 KB bf16, G^{-1} 256 KB) does
-// not fit a block's 227 KB of shared memory, so only the vectors live in
-// shared memory (~50 KB) and E, G^{-1} (or H^{-1}, E^T E) stream from
-// L2/HBM on every pass:
-//   * E v and G^{-1} v: warps over rows, lanes along the row (16-byte
-//     loads), warp-shuffle reduction;
+// The TPU kernel keeps a block of instances' E and G^{-1} in VMEM.  Here
+// the vectors live in shared memory (~50 KB at CA-500), and E takes one
+// of four routes, chosen by the wrapper (ops/fused_lp.py) from E's data
+// and shape:
+//   * f32-stream, bf16-stream: E streams from L2/HBM on every pass (E 512
+//     KB f32 / 256 KB bf16 per CA-500 instance does not fit a block);
+//   * int8-stream: E held exactly in one byte per entry (every entry an
+//     integer in [-127, 127], as CA's 0/1 incidence matrix is) streams
+//     in place of the f32 one: a quarter of the bytes, more loads in
+//     flight per thread;
+//   * int8-resident: where the one-byte E fits beside the vectors (CA-500:
+//     128 KB + 52.5 KB of 227 KB), the block copies its instance's E into
+//     shared memory once at the window's start, and only G^{-1} (or
+//     H^{-1}, E^T E) streams, which L2 holds across iterations at
+//     CA-500 (32 MB for 128 instances).
+// A one-byte entry is decoded exactly: its byte, biased by 128, is
+// permuted into the mantissa of 2^23 and 2^23 + 128 subtracted (one byte
+// permute and one add per entry).  Each product e * v is then the f32
+// route's product and the sums keep their order, so every route gives the
+// same bits.  The passes:
+//   * E v and G^{-1} v: warps over rows, lanes along the row (4 entries a
+//     lane: 16-byte f32 loads, 4-byte int8 loads), warp-shuffle reduction;
 //   * E^T w: thread groups over column quads, each group over a strided
 //     subset of rows, partial sums combined in shared memory;
 //   * the two forward products (E rhs, E x0) share one pass over E and
@@ -48,8 +63,13 @@ constexpr int NW = NT / 32;    // warps per block
 constexpr int HMAX = 32;       // largest objective-history ring
 constexpr float EPS = 2.2204e-16f;
 
+// E routes (LpWindowArgs.e_route; ops/fused_lp.E_ROUTES in this order)
+enum ERoute {
+  kF32Stream = 0, kBf16Stream = 1, kI8Stream = 2, kI8Resident = 3
+};
+
 struct LpWindowArgs {
-  const void* E;           // (B, m, n) float32 or bfloat16
+  const void* E;           // (B, m, n) float32, bfloat16 or int8 (e_route)
   const float* fac;        // (B, m, m) G^{-1}, or (B, n, n) H^{-1} (n side)
   const float* ete;        // (B, n, n) E_f^T E_f (n side), else null
   const float* b;          // (B, n)
@@ -81,42 +101,87 @@ struct LpWindowArgs {
   float* y3_out;
   float* ex_out;
   float* traj;             // (B, window, n) when record, else null
-  int B, m, n, H, window, it0, skip_cvg_at, record, nside, e_bf16;
+  int B, m, n, H, window, it0, skip_cvg_at, record, nside, e_route;
   int rho_change_step, incumbent_stride, feasible_incumbent;
   int smem_bytes;          // dynamic shared memory, as the caller sized it
   float initial_rho, log_learning_fact, gamma0, log_gamma_factor;
   float stop_threshold, std_threshold, pcg_tol2;
 };
 
+// Four one-byte entries as exact floats: each byte biased by 128 into the
+// low mantissa byte of 2^23, then 2^23 + 128 subtracted.
+__device__ __forceinline__ void dec4(unsigned w, float (&e)[4]) {
+  const unsigned u = w ^ 0x80808080u;
+  e[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  e[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  e[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  e[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// Four consecutive matrix entries as floats, from global memory (SH
+// false) or from shared memory (SH true, the resident one-byte E).
+template <bool SH>
+__device__ __forceinline__ void ld4(const float* p, float (&e)[4]) {
+  lpbox::load4(p, e);
+}
+template <bool SH>
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float (&e)[4]) {
+  lpbox::load4(p, e);
+}
+template <bool SH>
+__device__ __forceinline__ void ld4(const int8_t* p, float (&e)[4]) {
+  dec4(SH ? *reinterpret_cast<const unsigned*>(p)
+          : __ldg(reinterpret_cast<const unsigned*>(p)), e);
+}
+
+// Loop unrolling UN of the passes below: one-byte E streamed from global
+// memory moves 4 bytes a load, so each thread keeps 16 loads in flight; 4
+// otherwise.  Unrolling does not change the order of a thread's sums.
+//
 // out{0,1}[i] = sum_j M[i, j] * v{0,1}[j] for i < rows (v in shared memory).
-template <typename TM, int NV>
+// A warp takes RW rows at a time (the resident route: 4, so the loads and
+// shuffle reductions of 4 rows overlap); each row is summed by one warp,
+// lanes over quads q = lane, lane + 32, .. in order and then the shuffle
+// tree, whatever RW is.
+template <typename TM, int NV, bool SH = false, int RW = 1,
+          int UN = (sizeof(TM) == 1 && !SH ? 16 : 4)>
 __device__ void mv_rows(const TM* __restrict__ M, int rows, int cols,
                         const float* v0, const float* v1, float* o0,
                         float* o1) {
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nq = cols >> 2;
-  for (int i = warp; i < rows; i += NW) {
-    const TM* row = M + (size_t)i * cols;
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll 4
+  for (int i0 = warp * RW; i0 < rows; i0 += NW * RW) {
+    float s0[RW], s1[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) s0[r] = s1[r] = 0.f;
+#pragma unroll (UN)
     for (int q = lane; q < nq; q += 32) {
-      float e[4];
-      lpbox::load4(row + 4 * q, e);
       const float4 a = reinterpret_cast<const float4*>(v0)[q];
-      s0 = fmaf(e[0], a.x, s0); s0 = fmaf(e[1], a.y, s0);
-      s0 = fmaf(e[2], a.z, s0); s0 = fmaf(e[3], a.w, s0);
-      if (NV == 2) {
-        const float4 c = reinterpret_cast<const float4*>(v1)[q];
-        s1 = fmaf(e[0], c.x, s1); s1 = fmaf(e[1], c.y, s1);
-        s1 = fmaf(e[2], c.z, s1); s1 = fmaf(e[3], c.w, s1);
+      float4 c;
+      if (NV == 2) c = reinterpret_cast<const float4*>(v1)[q];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        if (RW > 1 && i0 + r >= rows) break;
+        float e[4];
+        ld4<SH>(M + (size_t)(i0 + r) * cols + 4 * q, e);
+        s0[r] = fmaf(e[0], a.x, s0[r]); s0[r] = fmaf(e[1], a.y, s0[r]);
+        s0[r] = fmaf(e[2], a.z, s0[r]); s0[r] = fmaf(e[3], a.w, s0[r]);
+        if (NV == 2) {
+          s1[r] = fmaf(e[0], c.x, s1[r]); s1[r] = fmaf(e[1], c.y, s1[r]);
+          s1[r] = fmaf(e[2], c.z, s1[r]); s1[r] = fmaf(e[3], c.w, s1[r]);
+        }
       }
     }
-    s0 = lpbox::warp_sum(s0);
-    if (NV == 2) s1 = lpbox::warp_sum(s1);
-    if (lane == 0) {
-      o0[i] = s0;
-      if (NV == 2) o1[i] = s1;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      if (RW > 1 && i0 + r >= rows) break;
+      s0[r] = lpbox::warp_sum(s0[r]);
+      if (NV == 2) s1[r] = lpbox::warp_sum(s1[r]);
+      if (lane == 0) {
+        o0[i0 + r] = s0[r];
+        if (NV == 2) o1[i0 + r] = s1[r];
+      }
     }
   }
   __syncthreads();
@@ -124,7 +189,8 @@ __device__ void mv_rows(const TM* __restrict__ M, int rows, int cols,
 
 // out{0,1}[j] = sum_i M[i, j] * w{0,1}[i] for j < cols (w in shared memory).
 // `part` holds NV * G * cols floats, G = max(1, NT / (cols / 4)).
-template <typename TM, int NV>
+template <typename TM, int NV, bool SH = false,
+          int UN = (sizeof(TM) == 1 && !SH ? 16 : 4)>
 __device__ void mv_cols(const TM* __restrict__ M, int rows, int cols,
                         const float* w0, const float* w1, float* o0,
                         float* o1, float* part) {
@@ -133,10 +199,10 @@ __device__ void mv_cols(const TM* __restrict__ M, int rows, int cols,
   if (nq >= NT) {
     for (int q = threadIdx.x; q < nq; q += NT) {
       float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
+#pragma unroll (UN)
       for (int i = 0; i < rows; ++i) {
         float e[4];
-        lpbox::load4(M + (size_t)i * cols + 4 * q, e);
+        ld4<SH>(M + (size_t)i * cols + 4 * q, e);
         const float s0 = w0[i];
 #pragma unroll
         for (int k = 0; k < 4; ++k) a0[k] = fmaf(e[k], s0, a0[k]);
@@ -159,10 +225,10 @@ __device__ void mv_cols(const TM* __restrict__ M, int rows, int cols,
   const int g = threadIdx.x / nq, q = threadIdx.x % nq;
   if (g < G) {
     float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
+#pragma unroll (UN)
     for (int i = g; i < rows; i += G) {
       float e[4];
-      lpbox::load4(M + (size_t)i * cols + 4 * q, e);
+      ld4<SH>(M + (size_t)i * cols + 4 * q, e);
       const float s0 = w0[i];
 #pragma unroll
       for (int k = 0; k < 4; ++k) a0[k] = fmaf(e[k], s0, a0[k]);
@@ -196,7 +262,7 @@ __host__ __device__ inline int col_groups(int n) {
   return nq >= NT ? 1 : NT / nq;
 }
 
-template <typename TE>
+template <typename TE, bool RES>
 __global__ void __launch_bounds__(NT) lp_window_kernel(const LpWindowArgs a) {
   extern __shared__ __align__(16) float sm[];
   const int inst = blockIdx.x, tid = threadIdx.x;
@@ -228,7 +294,18 @@ __global__ void __launch_bounds__(NT) lp_window_kernel(const LpWindowArgs a) {
   float* part = u + m;    // 2 * G * n
   float* red = part + 2 * col_groups(n) * n;   // 4 * NW + 4
 
+  // rows a warp takes at a time in the row passes: one on the stream
+  // routes, four on the resident route
+  constexpr int RWE = RES ? 4 : 1;
   const TE* E = static_cast<const TE*>(a.E) + (size_t)inst * m * n;
+  if (RES) {
+    // the resident route: this instance's one-byte E (m n bytes, a
+    // multiple of 16) into shared memory after the carve-up, once
+    uint4* Es = reinterpret_cast<uint4*>(red + 4 * NW + 4);
+    const uint4* Eg = reinterpret_cast<const uint4*>(E);
+    for (int k = tid; k < m * n / 16; k += NT) Es[k] = __ldg(Eg + k);
+    E = reinterpret_cast<const TE*>(Es);
+  }
   const float* fac =
       a.fac + (size_t)inst * (a.nside ? (size_t)n * n : (size_t)m * m);
   const float* ete = a.nside ? a.ete + (size_t)inst * n * n : nullptr;
@@ -265,7 +342,7 @@ __global__ void __launch_bounds__(NT) lp_window_kernel(const LpWindowArgs a) {
   for (int j = tid; j < n; j += NT) nact[0] += fr[j];
   lpbox::block_sum<1, NT>(nact, red);
   const float sqrt_n = sqrtf(nact[0]);
-  mv_rows<TE, 1>(E, m, n, x0, nullptr, exc, nullptr);   // E (free * x)
+  mv_rows<TE, 1, RES, RWE>(E, m, n, x0, nullptr, exc, nullptr);  // E (free x)
 
   for (int t = 0; t < a.window; ++t) {
     if (done) {
@@ -301,20 +378,20 @@ __global__ void __launch_bounds__(NT) lp_window_kernel(const LpWindowArgs a) {
     }
 
     // --- rhs + exact solve ---------------------------------------------
-    mv_cols<TE, 1>(E, m, n, w, nullptr, v1, nullptr, part);   // E^T w
+    mv_cols<TE, 1, RES>(E, m, n, w, nullptr, v1, nullptr, part);   // E^T w
     for (int j = tid; j < n; j += NT) {
       const float f = fr[j];
       rhs[j] = f * (rho * y1[j] + rho * y2[j] - (bb[j] + z1[j] + z2[j]) + v1[j]);
       x0[j] = f * y1[j];
     }
     if (a.nside) {
-      mv_rows<float, 1>(fac, n, n, rhs, nullptr, v1, nullptr);  // H^{-1} rhs
-      mv_rows<float, 1>(ete, n, n, x0, nullptr, v2, nullptr);   // E^T E x0
+      mv_rows<float, 1, false, RWE>(fac, n, n, rhs, nullptr, v1, nullptr);
+      mv_rows<float, 1, false, RWE>(ete, n, n, x0, nullptr, v2, nullptr);
       for (int j = tid; j < n; j += NT) xn[j] = fr[j] * v1[j] / rho;
     } else {
-      mv_rows<TE, 2>(E, m, n, rhs, x0, a1, a2);                 // E rhs, E x0
-      mv_rows<float, 1>(fac, m, m, a1, nullptr, u, nullptr);    // u
-      mv_cols<TE, 2>(E, m, n, u, a2, v1, v2, part);             // E^T u, E^T E x0
+      mv_rows<TE, 2, RES, RWE>(E, m, n, rhs, x0, a1, a2);       // E rhs, E x0
+      mv_rows<float, 1, false, RWE>(fac, m, m, a1, nullptr, u, nullptr);  // u
+      mv_cols<TE, 2, RES>(E, m, n, u, a2, v1, v2, part);  // E^T u, E^T E x0
       for (int j = tid; j < n; j += NT) xn[j] = fr[j] * (rhs[j] - v1[j]) / c;
     }
     // PCG warm-start early exit (reference :204-209 semantics)
@@ -330,7 +407,7 @@ __global__ void __launch_bounds__(NT) lp_window_kernel(const LpWindowArgs a) {
     for (int j = tid; j < n; j += NT)
       if (keep) xn[j] = x0[j];
     if (a.nside) {
-      mv_rows<TE, 1>(E, m, n, xn, nullptr, a1, nullptr);        // ex_new
+      mv_rows<TE, 1, RES, RWE>(E, m, n, xn, nullptr, a1, nullptr);  // ex_new
     } else {
       for (int i = tid; i < m; i += NT) a1[i] = keep ? a2[i] : u[i] / rho;
     }
@@ -392,7 +469,7 @@ __global__ void __launch_bounds__(NT) lp_window_kernel(const LpWindowArgs a) {
       cur_obj = obj_bin;
       bool better = best_obj >= obj_bin;
       if (a.feasible_incumbent) {
-        mv_rows<TE, 1>(E, m, n, rnd, nullptr, a2, nullptr);     // E rounding
+        mv_rows<TE, 1, RES, RWE>(E, m, n, rnd, nullptr, a2, nullptr);  // E rnd
         float bad[1] = {0.f};
         for (int i = tid; i < m; i += NT)
           if (rm[i] > 0.5f && !(a2[i] <= fe[i] + 1e-6f)) bad[0] += 1.f;
@@ -444,13 +521,20 @@ size_t carve_floats(int m, int n) {
          4 * NW + 4;
 }
 
-template <typename TE>
+// Dynamic shared memory of a launch: the carve-up, and on the resident
+// route the one-byte E after it (m n bytes, rounded up to 16).
+size_t smem_need(int m, int n, int route) {
+  return carve_floats(m, n) * sizeof(float) +
+         (route == kI8Resident ? ((size_t)m * n + 15) / 16 * 16 : 0);
+}
+
+template <typename TE, bool RES>
 cudaError_t launch(const LpWindowArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      lp_window_kernel<TE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lp_window_kernel<TE, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       a.smem_bytes);
   if (err != cudaSuccess) return err;
-  lp_window_kernel<TE><<<a.B, NT, a.smem_bytes, stream>>>(a);
+  lp_window_kernel<TE, RES><<<a.B, NT, a.smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -467,10 +551,16 @@ LPBOX_API int lpbox_lp_window(const void* args, void* stream) {
   const LpWindowArgs& a = *static_cast<const LpWindowArgs*>(args);
   if (a.n % 4 || a.m % 4 || a.n <= 0 || a.m <= 0 || a.H < 2 || a.H > HMAX ||
       a.rho_change_step <= 0 || (a.record && a.traj == nullptr) ||
-      (a.nside && a.ete == nullptr) ||
-      (size_t)a.smem_bytes != carve_floats(a.m, a.n) * sizeof(float))
+      (a.nside && a.ete == nullptr) || a.e_route < kF32Stream ||
+      a.e_route > kI8Resident ||
+      (size_t)a.smem_bytes != smem_need(a.m, a.n, a.e_route))
     return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.window == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(a.e_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s));
+  switch (a.e_route) {
+    case kF32Stream: return (int)launch<float, false>(a, s);
+    case kBf16Stream: return (int)launch<__nv_bfloat16, false>(a, s);
+    case kI8Stream: return (int)launch<int8_t, false>(a, s);
+    default: return (int)launch<int8_t, true>(a, s);
+  }
 }

@@ -11,37 +11,63 @@
 //
 // Bound: bytes.  E is read once per iteration (109 MB of bf16 at the
 // (8, 1664, 4096) xl block, ~33 us at 3.35 TB/s) against 24 m n B flops
-// (1.31 GFLOP, ~20 us at the f32 rate).
+// (1.31 GFLOP, ~20 us at the f32 rate): the two are close, so the copy of
+// E and the arithmetic on it have to overlap.
 //
-// Design.  The TPU kernel loads an (m, NB) column tile into VMEM once
-// and uses it twice; here a thread block (512 threads) stages one (m, NB)
-// tile of E in shared memory (NB = 32 for bf16 and 16 for f32 at
-// m = 1664, both ~113 KB; NB = 16 / 8 up to m = 4096) and walks the
-// `cw` columns of its chunk tile by tile, the loop standing in for the
-// TPU's sequential grid axis.  Grid = (n / cw, B): 128 blocks for the xl
-// block of 8 instances.  Per tile:
-//   * transpose products: thread (column j, part p) sums rows p, p+16, ..
-//     in order; the 16 parts are added in order p = 0..15;
-//   * one thread per column does both branches' updates and writes the
-//     12 per-column outputs, the 8 A values (to shared memory) and the
-//     column's 14 sum terms (to a workspace);
-//   * forward products: thread i holds F[:, i] for rows i, i+512, .. in
-//     registers across the tiles and adds A[:, j] E[i, j] column by column.
-// Every sum runs in an order that does not depend on NB or on E's type,
-// so bf16 and f32 E (0/1 entries) give the same bits.  Blocks never wait
-// on each other: each writes its partial F to a workspace, and a second
-// launch adds the partials in block order and the column sum terms in a
-// fixed tree.  No atomics: a repeat launch gives the same bits.
+// Design: a persistent sweep with a cp.async ring.
+//   * Work: the B * n columns are cut into units of UNIT columns, and
+//     block g of the grid (one block per SM) walks the units
+//     [g NU / G, (g+1) NU / G) in order, across instance boundaries, tile
+//     by tile.  A tile is (m rows x 32 bytes): nb = 16 bf16 or 8 f32
+//     columns (CPR = 2 chunks of 16 bytes per row), or half that where
+//     three such stages do not fit (m > 2036).
+//   * Ring: STAGES (2-4) tiles in shared memory: the tile being
+//     transposed, the one being forwarded, and STAGES - 2 whose cp.async
+//     copies are in flight.  Each stage also carries the tile's slice of
+//     the 7 column vectors, so the per-column update reads no global
+//     memory.  Rows are stored with the 16-byte chunks of every other
+//     4-row group swapped, so 8 lanes reading one chunk of 8 consecutive
+//     rows hit 32 banks.
+//   * Two phases per tile t, one barrier each.  Phase 1, every warp: the
+//     transpose products of t.  Phase 2: warp 0 runs the per-column
+//     update of t while warps 1.. run the forward products of t-1, whose
+//     A the update wrote one tile earlier (A is double-buffered), so the
+//     update's long chain of dependent steps runs beside the forward
+//     products instead of between two barriers.
+//   * Transpose products: thread (chunk h, part p) sums rows p, p + P,
+//     .. (P = 512 / CPR) of its chunk in order, for 4 x (16 / sizeof(E))
+//     values; a warp reduces its 32 parts by a transposing butterfly
+//     (xor 16, 8, 4, 2, 1), and the update adds the warps of a chunk in
+//     warp order.
+//   * Per-column update: one thread per (column, branch), operands from
+//     the stage; A goes to shared memory, V and the sum terms to global.
+//   * Forward products: forward thread f (warps 1..) holds F[:, i] for
+//     rows i = f, f + 480, .. (RPT = ceil(m / 480) rows, a template
+//     parameter: 4 at m = 1664) in registers across a segment (the
+//     block's columns of one instance) and adds A[:, j] E[i, j] column by
+//     column; at a segment's end it writes its partial F to slot g + b of
+//     a workspace.
+// Every sum runs in an order that depends neither on nb nor on E's type
+// (the row parts, the butterfly and the column order are the same for
+// bf16 and f32 E), so bf16 and f32 E (0/1 entries) give the same bits.
+// Blocks never wait on each other: a second launch adds each instance's
+// F partials in block order and the column sum terms in a fixed tree.  No
+// atomics: a repeat launch gives the same bits.
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 512;       // threads per block
-constexpr int NP = 16;        // row parts of a transpose product
-constexpr int RPT = 8;        // rows of F per thread: m <= RPT * NT
-constexpr int NSUM = 14;      // per-instance sums (slots 14, 15 are 0)
+constexpr int NT = 512;        // threads per block
+constexpr int NWARP = NT / 32;
+constexpr int NSUM = 14;       // per-instance sums (slots 14, 15 are 0)
 constexpr int NACC = 16;
 constexpr int SMEM_MAX = 232448;
+constexpr int UNIT = 32;       // columns per unit of work
+constexpr int NB_MAX = 16;     // widest tile (bf16, two chunks per row)
+constexpr int NVEC = 7;        // column vectors staged with each tile
+constexpr int MAX_STAGES = 4;
+constexpr int M_MAX = 4096;
+constexpr int NF = NT - 32;    // forward-product threads (warps 1..)
 
 struct StreamSweepArgs {
   const void* E;        // (B, m, n) float32 or bfloat16
@@ -57,54 +83,163 @@ struct StreamSweepArgs {
   float* V;             // (B, 12, n): x, z1, z2, y1, base, shift per branch
   float* F;             // (B, 8, m)
   float* acc;           // (B, 16)
-  float* f_part;        // (B, n / cw, 8, m) workspace
+  float* f_part;        // (grid + B - 1, 8, m) workspace
   float* s_part;        // (B, 14, n) workspace
-  int B, m, n, nb, cw, e_bf16;
+  int B, m, n, nb, cpr, stages, grid, e_bf16;
   float rho, gamma, rho_nx;
 };
 
-template <typename TE>
-__host__ __device__ constexpr int row_words(int nb) {
-  // an odd number of 4-byte words per staged row: a warp reading one
-  // column of 32 rows touches 32 banks
-  return nb * (int)sizeof(TE) / 4 + 1;
+// Shared memory of one block: M as float4 rows, the warps' transpose
+// sums, A of two tiles, and the ring (each stage: m rows of cpr chunks,
+// then the 7 vector slices, sized for the widest tile).
+__host__ __device__ int fixed_bytes(int m) {
+  return m * 16 + NWARP * 32 * 4 + 2 * NB_MAX * 8 * 4;
+}
+__host__ __device__ int stage_bytes(int m, int cpr) {
+  return m * 16 * cpr + NVEC * NB_MAX * 4;
+}
+__host__ __device__ int smem_bytes(int m, int cpr, int stages) {
+  return fixed_bytes(m) + stages * stage_bytes(m, cpr);
+}
+// Two chunks per row where three such stages fit (one tile in flight
+// beside the two being computed on), else one; then as many stages as
+// fit, at most MAX_STAGES.  Depends on m only, so bf16 and f32 E take the
+// same row parts.
+int plan_cpr(int m) {
+  return smem_bytes(m, 2, 3) <= SMEM_MAX ? 2 : 1;
+}
+int plan_stages(int m, int cpr) {
+  const int s = (SMEM_MAX - fixed_bytes(m)) / stage_bytes(m, cpr);
+  return s < MAX_STAGES ? s : MAX_STAGES;
 }
 
-template <typename TE>
-__host__ __device__ int smem_bytes(int m, int nb) {
-  return m * 16 + m * row_words<TE>(nb) * 4 + NP * 4 * nb * 4 + nb * 8 * 4;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most `pending` groups of this thread are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::);
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::);
 }
 
-__device__ __forceinline__ float elem(const uint32_t* row, int j, float) {
-  return reinterpret_cast<const float*>(row)[j];
-}
-__device__ __forceinline__ float elem(const uint32_t* row, int j,
-                                      __nv_bfloat16) {
-  return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[j]);
+// The 16-byte chunk c of staged row i (chunks of rows 4..7 of every
+// 8-row group swapped when a row has two).
+__device__ __forceinline__ int phys_chunk(int i, int c, int cpr) {
+  return cpr == 2 ? c ^ ((i >> 2) & 1) : c;
 }
 
+// 16 bytes of E as floats: 4 f32 or 8 bf16 values, in column order.
+__device__ __forceinline__ void unpack(const uint4 w, float (&e)[4]) {
+  e[0] = __uint_as_float(w.x); e[1] = __uint_as_float(w.y);
+  e[2] = __uint_as_float(w.z); e[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4 w, float (&e)[8]) {
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    e[2 * k] = __uint_as_float(u[k] << 16);
+    e[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+  }
+}
+
+// Transposing butterfly over a warp, steps STEP.. of xor 16, 8, 4, 2, 1:
+// at each step a lane keeps the half of its values that bit `off` of its
+// lane index selects and adds the partner's copy of that half; lane l ends
+// with value l (NV = 32) or l >> 1 (NV = 16) summed over the warp.  Every
+// index is a compile-time constant, so v stays in registers (with ~190
+// KB of shared memory a block has little L1 left for local memory).
+template <int NV, int STEP>
+__device__ __forceinline__ void butterfly(float (&v)[NV], int lane) {
+  if constexpr (STEP < 5) {
+    constexpr int OFF = 16 >> STEP, HALF = (NV >> STEP) / 2;
+    const bool up = lane & OFF;
+    if constexpr (HALF == 0) {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], OFF);
+    } else {
+#pragma unroll
+      for (int q = 0; q < HALF; ++q) {
+        const float lo = v[q], hi = v[q + HALF];
+        v[q] = (up ? hi : lo) +
+               __shfl_xor_sync(0xffffffffu, up ? lo : hi, OFF);
+      }
+    }
+    butterfly<NV, STEP + 1>(v, lane);
+  }
+}
+
+// Copy tile `tile` (global tile index) and its vector slices into `dst`.
 template <typename TE>
+__device__ void load_tile(const StreamSweepArgs& a, int tile, char* dst) {
+  const int m = a.m, n = a.n, nb = a.nb, cpr = a.cpr;
+  const int tpi = n / nb;
+  const int b = tile / tpi, j0 = (tile - b * tpi) * nb;
+  const char* src = static_cast<const char*>(a.E) +
+                    ((size_t)b * m * n + j0) * sizeof(TE);
+  const size_t rs = (size_t)n * sizeof(TE);
+  for (int idx = threadIdx.x; idx < m * cpr; idx += NT) {
+    const int i = cpr == 2 ? idx >> 1 : idx, c = idx - i * cpr;
+    cp_async16(dst + (size_t)i * 16 * cpr + 16 * phys_chunk(i, c, cpr),
+               src + i * rs + 16 * c);
+  }
+  float* vd = reinterpret_cast<float*>(dst + (size_t)m * 16 * cpr);
+  const int pieces = nb / 4;
+  if ((int)threadIdx.x < NVEC * pieces) {
+    const int v = threadIdx.x / pieces, p = threadIdx.x - v * pieces;
+    const float* base = v == 0 ? a.rhs : v == 1 ? a.x0 : v == 2 ? a.shift
+                        : v == 3 ? a.z1 : v == 4 ? a.z2 : v == 5 ? a.b
+                        : a.free_f;
+    cp_async16(vd + v * NB_MAX + 4 * p, base + (size_t)b * n + j0 + 4 * p);
+  }
+}
+
+template <typename TE, int RPT>
 __global__ void __launch_bounds__(NT, 1) sweep_kernel(const StreamSweepArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int m = a.m, n = a.n, nb = a.nb;
-  const int b = blockIdx.y, chunk = blockIdx.x, nchunk = gridDim.x;
-  const int tid = threadIdx.x;
-  const int rw = row_words<TE>(nb);
-  float4* Ms = reinterpret_cast<float4*>(smem);                 // [m]
-  float* As = smem + 4 * m;                                     // [nb][8]
-  float* Tp = As + nb * 8;                                      // [NP][4][nb]
-  uint32_t* tile = reinterpret_cast<uint32_t*>(Tp + NP * 4 * nb);  // [m][rw]
+  extern __shared__ __align__(16) char smem[];
+  constexpr int CPC = 16 / (int)sizeof(TE);   // columns per chunk
+  constexpr int NV = 4 * CPC;                 // transpose values per thread
+  const int m = a.m, n = a.n, nb = a.nb, cpr = a.cpr, S = a.stages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4* Ms = reinterpret_cast<float4*>(smem);          // [m]
+  float* Tw = reinterpret_cast<float*>(Ms + m);          // [NWARP][32]
+  float* As = Tw + NWARP * 32;                           // [2][NB_MAX][8]
+  char* ring = reinterpret_cast<char*>(As + 2 * NB_MAX * 8);
+  const int sb = stage_bytes(m, cpr);
 
-  const float* M = a.M + (size_t)b * 4 * m;
-  for (int i = tid; i < m; i += NT)
-    Ms[i] = make_float4(M[i], M[m + i], M[2 * m + i], M[3 * m + i]);
+  // this block's tiles: units [u0, u1) of B * n / UNIT
+  const int tpi = n / nb, tpu = UNIT / nb;
+  const long long NU = (long long)a.B * (n / UNIT);
+  const int g = blockIdx.x, G = gridDim.x;
+  const int t0 = (int)(g * NU / G) * tpu, t1 = (int)((g + 1) * NU / G) * tpu;
 
   const float rho = a.rho, gamma = a.gamma, rho_nx = a.rho_nx;
-  const float c = rho + rho;
+  const float c2 = rho + rho;
   const float gr = gamma * rho;
-  const float s_t = a.s[b];
-  const TE* E = static_cast<const TE*>(a.E) + (size_t)b * m * n;
-  const int vpr = nb * (int)sizeof(TE) / 16;     // 16-byte pieces per row
+
+  float s_b;   // sphere scale of the current segment's instance
+  auto load_M = [&](int b) {
+    const float* M = a.M + (size_t)b * 4 * m;
+    for (int i = tid; i < m; i += NT)
+      Ms[i] = make_float4(M[i], M[m + i], M[2 * m + i], M[3 * m + i]);
+    s_b = a.s[b];
+  };
+  // tiles in flight ahead of the one being transposed: the ring holds
+  // the tile being transposed and the one being forwarded besides
+  const int D = S - 2;
+#pragma unroll 1
+  for (int s = 0; s < D; ++s) {
+    if (t0 + s < t1) load_tile<TE>(a, t0 + s, ring + (size_t)s * sb);
+    cp_async_commit();
+  }
+  load_M(t0 / tpi);   // while the first tiles are in flight
 
   float fa[RPT][8];
 #pragma unroll
@@ -112,54 +247,86 @@ __global__ void __launch_bounds__(NT, 1) sweep_kernel(const StreamSweepArgs a) {
 #pragma unroll
     for (int r = 0; r < 8; ++r) fa[q][r] = 0.f;
 
-  for (int j0 = chunk * a.cw; j0 < (chunk + 1) * a.cw; j0 += nb) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < m * vpr; idx += NT) {
-      const int i = idx / vpr, v = idx - i * vpr;
-      const uint4 g = __ldg(reinterpret_cast<const uint4*>(
-                                E + (size_t)i * n + j0) + v);
-      uint32_t* d = tile + i * rw + 4 * v;
-      d[0] = g.x; d[1] = g.y; d[2] = g.z; d[3] = g.w;
-    }
-    __syncthreads();
+  const int ppc = NT / cpr;             // row parts per chunk
+  const int h = tid / ppc, p = tid - h * ppc;
+  const int wpc = NWARP / cpr;          // warps per chunk
+  const int f = tid - 32;               // forward rows f, f + NF, .. (warps 1..)
 
-    // transpose products, parts
-    if (tid < NP * nb) {
-      const int j = tid % nb, p = tid / nb;
-      float t0 = 0.f, t1 = 0.f, t2 = 0.f, t3 = 0.f;
-      for (int i = p; i < m; i += NP) {
-        const float e = elem(tile + i * rw, j, TE());
-        const float4 mm = Ms[i];
-        t0 = fmaf(mm.x, e, t0);
-        t1 = fmaf(mm.y, e, t1);
-        t2 = fmaf(mm.z, e, t2);
-        t3 = fmaf(mm.w, e, t3);
+  // Iteration k (tile t = t0 + k): (A) phase 1, every warp: transpose
+  // products of t; (B) phase 2, warp 0: the per-column update of t (its
+  // A to buffer k % 2), warps 1..: forward products of t-1 (A from buffer
+  // (k-1) % 2).  The loop runs once more after the last tile for its
+  // forward products.
+#pragma unroll 1
+  for (int t = t0; t <= t1; ++t) {
+    const int k = t - t0;
+    const bool live = t < t1;
+    if (D > 0) cp_async_wait(D - 1);
+    __syncthreads();   // (A) tile t landed; stage of t-2 and Tw free
+    {
+      const int tn = t + D;
+      if (tn < t1) load_tile<TE>(a, tn, ring + (size_t)((k + D) % S) * sb);
+      cp_async_commit();
+      if (D == 0) {
+        cp_async_wait(0);
+        __syncthreads();
       }
-      float* o = Tp + p * 4 * nb + j;
-      o[0] = t0; o[nb] = t1; o[2 * nb] = t2; o[3 * nb] = t3;
     }
-    __syncthreads();
+    const char* st = ring + (size_t)(k % S) * sb;
 
-    // per-column updates of both branches
-    if (tid < nb) {
-      const int j = tid, col = j0 + j;
-      float T[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int p = 0; p < NP; ++p)
+    // phase 1: transpose products, this thread's rows of chunk h in order
+    if (live) {
+      float v[NV];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) T[k] += Tp[(p * 4 + k) * nb + j];
-      const size_t o = (size_t)b * n + col;
-      const float rhs = a.rhs[o], x0 = a.x0[o], shift = a.shift[o];
-      const float z1 = a.z1[o], z2 = a.z2[o], bb = a.b[o], fr = a.free_f[o];
-      const float y2 = 0.5f + s_t * shift;
-      const float r0 = rhs - fr * (c * x0 + rho * T[1]);
-      float* sp = a.s_part + (size_t)b * NSUM * n + col;
-      sp[0] = r0 * r0;
-      sp[(size_t)n] = rhs * rhs;
-      float* V = a.V + (size_t)b * 12 * n + col;
+      for (int q = 0; q < NV; ++q) v[q] = 0.f;
+#pragma unroll 2
+      for (int i = p; i < m; i += ppc) {
+        const float4 mm = Ms[i];
+        float e[CPC];
+        unpack(*reinterpret_cast<const uint4*>(
+                   st + (size_t)i * 16 * cpr + 16 * phys_chunk(i, h, cpr)),
+               e);
 #pragma unroll
-      for (int bi = 0; bi < 2; ++bi) {
-        const float xb = bi == 0 ? x0 : fr * (rhs - T[0]) / c;
-        const float etw = T[2 + bi];
+        for (int c = 0; c < CPC; ++c) {
+          v[c] = fmaf(mm.x, e[c], v[c]);
+          v[CPC + c] = fmaf(mm.y, e[c], v[CPC + c]);
+          v[2 * CPC + c] = fmaf(mm.z, e[c], v[2 * CPC + c]);
+          v[3 * CPC + c] = fmaf(mm.w, e[c], v[3 * CPC + c]);
+        }
+      }
+      butterfly<NV, 0>(v, lane);
+      const int idx = NV == 32 ? lane : lane >> 1;
+      if (NV == 32 || (lane & 1) == 0) Tw[warp * 32 + idx] = v[0];
+    }
+    __syncthreads();   // (B) Tw ready; every read of Ms is done
+
+    if (warp == 0) {
+      // phase 2, warp 0: per-column updates, one thread per (column, branch)
+      if (live && tid < 2 * nb) {
+        const int b = t / tpi, j0 = (t - b * tpi) * nb;
+        const int j = tid >> 1, bi = tid & 1, col = j0 + j;
+        const int hh = j / CPC, cc = j - hh * CPC;
+        // the chunk's warps in warp order, the 4 sums side by side
+        float T[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int w = 0; w < wpc; ++w) {
+          const float* tw = Tw + (hh * wpc + w) * 32 + cc;
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) T[kk] += tw[kk * CPC];
+        }
+        const float* vd =
+            reinterpret_cast<const float*>(st + (size_t)m * 16 * cpr);
+        const float rhs = vd[j], x0 = vd[NB_MAX + j], shift = vd[2 * NB_MAX + j];
+        const float z1 = vd[3 * NB_MAX + j], z2 = vd[4 * NB_MAX + j];
+        const float bb = vd[5 * NB_MAX + j], fr = vd[6 * NB_MAX + j];
+        const float y2 = 0.5f + s_b * shift;
+        float* sp = a.s_part + (size_t)b * NSUM * n + col;
+        if (bi == 0) {
+          const float r0 = rhs - fr * (c2 * x0 + rho * T[1]);
+          sp[0] = r0 * r0;
+          sp[(size_t)n] = rhs * rhs;
+        }
+        const float xb = bi == 0 ? x0 : fr * (rhs - T[0]) / c2;
+        const float etw = bi ? T[3] : T[2];
         const float z1n = z1 + gr * fr * (xb - x0);
         const float z2n = z2 + gr * fr * (xb - y2);
         const float y1n = fminf(fmaxf(xb + z1n / rho_nx, 0.f), 1.f);
@@ -168,66 +335,94 @@ __global__ void __launch_bounds__(NT, 1) sweep_kernel(const StreamSweepArgs a) {
             fr * (rho_nx * y1n + rho_nx * 0.5f - (bb + z1n + z2n) + etw);
         const float rounded = fr * (xb >= 0.5f ? 1.f : 0.f);
         const float d1 = fr * (xb - x0), d2 = fr * (xb - y2);
-        float* A = As + j * 8 + 4 * bi;
+        float* A = As + (k & 1) * NB_MAX * 8 + j * 8 + 4 * bi;
         A[0] = base; A[1] = shfn; A[2] = fr * y1n; A[3] = rounded;
+        float* V = a.V + (size_t)b * 12 * n + col;
         const float vals[6] = {xb, z1n, z2n, y1n, base, shfn};
 #pragma unroll
-        for (int k = 0; k < 6; ++k) V[(size_t)(2 * k + bi) * n] = vals[k];
+        for (int q = 0; q < 6; ++q) V[(size_t)(2 * q + bi) * n] = vals[q];
         const float terms[6] = {shfn * shfn, d1 * d1, d2 * d2,
                                 fr * xb * xb, bb * fr * xb, bb * rounded};
 #pragma unroll
-        for (int k = 0; k < 6; ++k) sp[(size_t)(2 + 2 * k + bi) * n] = terms[k];
+        for (int q = 0; q < 6; ++q) sp[(size_t)(2 + 2 * q + bi) * n] = terms[q];
       }
-    }
-    __syncthreads();
-
-    // forward products: F[:, i] += A[:, j] E[i, j], column by column
-    for (int j = 0; j < nb; ++j) {
-      const float4 a0 = reinterpret_cast<const float4*>(As + j * 8)[0];
-      const float4 a1 = reinterpret_cast<const float4*>(As + j * 8)[1];
+    } else if (t > t0) {
+      // phase 2, warps 1..: F[:, i] += A[:, j] E[i, j] for the columns
+      // of tile t-1, column by column
+      const int tp = t - 1;
+      const char* sp_ = ring + (size_t)((k + S - 1) % S) * sb;
+      const float* Ap = As + ((k - 1) & 1) * NB_MAX * 8;
+      for (int c = 0; c < cpr; ++c) {
+        uint4 w[RPT];
 #pragma unroll
-      for (int q = 0; q < RPT; ++q) {
-        const int i = tid + q * NT;
-        if (i < m) {
-          const float e = elem(tile + i * rw, j, TE());
-          fa[q][0] = fmaf(a0.x, e, fa[q][0]);
-          fa[q][1] = fmaf(a0.y, e, fa[q][1]);
-          fa[q][2] = fmaf(a0.z, e, fa[q][2]);
-          fa[q][3] = fmaf(a0.w, e, fa[q][3]);
-          fa[q][4] = fmaf(a1.x, e, fa[q][4]);
-          fa[q][5] = fmaf(a1.y, e, fa[q][5]);
-          fa[q][6] = fmaf(a1.z, e, fa[q][6]);
-          fa[q][7] = fmaf(a1.w, e, fa[q][7]);
+        for (int q = 0; q < RPT; ++q) {
+          const int i = f + q * NF;
+          if (i < m)
+            w[q] = *reinterpret_cast<const uint4*>(
+                sp_ + (size_t)i * 16 * cpr + 16 * phys_chunk(i, c, cpr));
+          else
+            w[q] = make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int cc = 0; cc < CPC; ++cc) {
+          const int j = c * CPC + cc;
+          const float4 a0 = reinterpret_cast<const float4*>(Ap + j * 8)[0];
+          const float4 a1 = reinterpret_cast<const float4*>(Ap + j * 8)[1];
+#pragma unroll
+          for (int q = 0; q < RPT; ++q) {
+            float e[CPC];
+            unpack(w[q], e);
+            fa[q][0] = fmaf(a0.x, e[cc], fa[q][0]);
+            fa[q][1] = fmaf(a0.y, e[cc], fa[q][1]);
+            fa[q][2] = fmaf(a0.z, e[cc], fa[q][2]);
+            fa[q][3] = fmaf(a0.w, e[cc], fa[q][3]);
+            fa[q][4] = fmaf(a1.x, e[cc], fa[q][4]);
+            fa[q][5] = fmaf(a1.y, e[cc], fa[q][5]);
+            fa[q][6] = fmaf(a1.z, e[cc], fa[q][6]);
+            fa[q][7] = fmaf(a1.w, e[cc], fa[q][7]);
+          }
+        }
+      }
+      const int bp = tp / tpi;
+      if (tp + 1 == t1 || (tp + 1) / tpi != bp) {
+        // the segment of instance bp ends with tile t-1
+        float* fp = a.f_part + (size_t)(g + bp) * 8 * m;
+#pragma unroll
+        for (int q = 0; q < RPT; ++q) {
+          const int i = f + q * NF;
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            if (i < m) fp[(size_t)r * m + i] = fa[q][r];
+            fa[q][r] = 0.f;
+          }
         }
       }
     }
+    // M and the sphere scale of the next tile's instance, read from (A)
+    // on (warp 0 reads s_b in its update above, before this)
+    if (t + 1 < t1 && (t + 1) / tpi != t / tpi) load_M((t + 1) / tpi);
   }
-
-  float* fp = a.f_part + ((size_t)b * nchunk + chunk) * 8 * m;
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int i = tid + q * NT;
-    if (i < m) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) fp[(size_t)r * m + i] = fa[q][r];
-    }
-  }
+  cp_async_wait(0);
 }
 
-// Blocks [0, nf) add the F partials in chunk order, one (row, i) per
-// thread; blocks nf.. reduce one of the 14 column sums each.
+// Blocks [0, nf) add one instance's F partials in block order, one (row,
+// i) per thread; blocks nf.. reduce one of the 14 column sums each.
 constexpr int NTF = 256;
 
 __global__ void __launch_bounds__(NTF) finish_kernel(const StreamSweepArgs a,
-                                                     int nchunk, int nf) {
+                                                     int nf) {
   __shared__ float red[NTF / 32 + 1];
   const int b = blockIdx.y, m = a.m, n = a.n;
   if ((int)blockIdx.x < nf) {
     const int idx = blockIdx.x * NTF + threadIdx.x;
     if (idx >= 8 * m) return;
-    const float* fp = a.f_part + (size_t)b * nchunk * 8 * m + idx;
+    // the blocks whose units hold instance b's first and last column
+    const long long G = a.grid, upi = n / UNIT, NU = (long long)a.B * upi;
+    const int g_lo = (int)(((b * upi + 1) * G - 1) / NU);
+    const int g_hi = (int)((((b + 1) * upi) * G - 1) / NU);
     float s = 0.f;
-    for (int c = 0; c < nchunk; ++c) s += fp[(size_t)c * 8 * m];
+    for (int g = g_lo; g <= g_hi; ++g)
+      s += a.f_part[(size_t)(g + b) * 8 * m + idx];
     a.F[(size_t)b * 8 * m + idx] = s;
     return;
   }
@@ -242,19 +437,30 @@ __global__ void __launch_bounds__(NTF) finish_kernel(const StreamSweepArgs a,
   }
 }
 
+template <typename TE, int RPT>
+cudaError_t launch_rpt(const StreamSweepArgs& a, cudaStream_t stream) {
+  const int bytes = smem_bytes(a.m, a.cpr, a.stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      sweep_kernel<TE, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return err;
+  sweep_kernel<TE, RPT><<<a.grid, NT, bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename TE>
 int launch(const StreamSweepArgs& a, cudaStream_t stream) {
-  const int bytes = smem_bytes<TE>(a.m, a.nb);
-  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<TE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int nchunk = a.n / a.cw;
-  sweep_kernel<TE><<<dim3(nchunk, a.B), NT, bytes, stream>>>(a);
-  err = cudaGetLastError();
+  const int rpt = (a.m + NF - 1) / NF;
+  // rows of F per forward thread: 4 at the xl block (m = 1664); 9 covers
+  // m up to 4320 > M_MAX
+  cudaError_t err =
+      rpt <= 1 ? launch_rpt<TE, 1>(a, stream)
+      : rpt <= 2 ? launch_rpt<TE, 2>(a, stream)
+      : rpt <= 4 ? launch_rpt<TE, 4>(a, stream)
+                 : launch_rpt<TE, 9>(a, stream);
   if (err != cudaSuccess) return (int)err;
   const int nf = (8 * a.m + NTF - 1) / NTF;
-  finish_kernel<<<dim3(nf + NSUM, a.B), NTF, 0, stream>>>(a, nchunk, nf);
+  finish_kernel<<<dim3(nf + NSUM, a.B), NTF, 0, stream>>>(a, nf);
   return (int)cudaGetLastError();
 }
 
@@ -264,18 +470,23 @@ LPBOX_API int lpbox_stream_sweep_args_size() {
   return (int)sizeof(StreamSweepArgs);
 }
 
-// Shared memory a launch needs at (m, nb) for E of `e_bytes` per entry.
-LPBOX_API int lpbox_stream_sweep_smem(int m, int nb, int e_bytes) {
-  return e_bytes == 2 ? smem_bytes<__nv_bfloat16>(m, nb)
-                      : smem_bytes<float>(m, nb);
+// Shared memory a launch needs at m with `cpr` chunks per row and
+// `stages` ring stages.
+LPBOX_API int lpbox_stream_sweep_smem(int m, int cpr, int stages) {
+  return smem_bytes(m, cpr, stages);
 }
 
 LPBOX_API int lpbox_stream_sweep(const void* args, void* stream) {
   const StreamSweepArgs& a = *static_cast<const StreamSweepArgs*>(args);
   const int es = a.e_bf16 ? 2 : 4;
-  if (a.m < 1 || a.m > RPT * NT || a.nb < 1 || a.nb * NP > NT ||
-      (a.nb * es) % 16 || a.cw % a.nb || a.n % a.cw || a.B < 1 ||
-      a.B > 65535)
+  if (a.m < 1 || a.m > M_MAX || a.B < 1 || a.B > 65535 || a.n % UNIT)
+    return (int)cudaErrorInvalidValue;
+  // the caller's plan must be the kernel's own
+  const int cpr = plan_cpr(a.m);
+  const long long NU = (long long)a.B * (a.n / UNIT);
+  if (a.cpr != cpr || a.nb != cpr * 16 / es ||
+      a.stages != plan_stages(a.m, cpr) || a.stages < 2 || a.grid < 1 ||
+      a.grid > NU)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a.e_bf16 ? launch<__nv_bfloat16>(a, s) : launch<float>(a, s);

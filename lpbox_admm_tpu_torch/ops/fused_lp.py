@@ -13,6 +13,19 @@ One thread block holds one instance's vectors in shared memory, so the
 kernel takes an (m, n) only where ``fits``; ``window_cuda`` refuses any
 other shape before it launches.
 
+E reaches the kernel by one of four routes (``E_ROUTES``), decided by
+E's data and shape, never by a setting: where every entry of E is an
+integer in [-127, 127] (CA's 0/1 incidence matrix), ``window_operand``
+gives the kernel an exact one-byte (int8) copy of E; the kernel then
+holds it in shared memory for the whole window where it fits beside the
+vectors (``resident_fits``: ``int8-resident``, CA-500) and streams it
+otherwise (``int8-stream``).  Any other E streams as float32 or, under
+``matvec_dtype="bfloat16"``, as bfloat16.  All four give the same bits
+where E is exact in one byte: the products and the order of the sums do
+not change.  A solve makes the operand once, where it owns E
+(``solve_fused_from``, the l2f phases), and hands it to every window
+(``E_op``).  ``LAUNCHES`` counts the launches per route.
+
 The TPU kernel's instance blocking (``bt``/``auto_bt``), its rank-3
 vector layout, VMEM chunking and unrolling are TPU concerns and are not
 carried over; the policy phase records a whole window in one launch
@@ -23,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,7 +44,7 @@ import torch
 from ..config import SolverConfig
 from ..core import lp as lp_core
 from ..core.problem import LpProblem
-from .fused_stream import _SMEM_MAX
+from .fused_stream import _SMEM_MAX, stream_operand
 
 _EPS = 2.2204e-16
 #: the kernel's threads per block and warps (``NT``, ``NW`` in
@@ -39,13 +52,16 @@ _EPS = 2.2204e-16
 _NT = 512
 _NW = _NT // 32
 
-#: kernel launches made by ``lp_window_fused`` in this process
-LAUNCHES = 0
+#: E's routes into the kernel, in the order of ``ERoute`` in
+#: csrc/lp_window.cu
+E_ROUTES = ("f32-stream", "bf16-stream", "int8-stream", "int8-resident")
+#: kernel launches made by ``lp_window_fused`` in this process, per E route
+LAUNCHES: Dict[str, int] = dict.fromkeys(E_ROUTES, 0)
 
 
 class WindowIn(NamedTuple):
     """Operands of one window, batch-major, as both versions take them."""
-    E: torch.Tensor          # (B, m, n) float32, or bfloat16 (exact 0/1)
+    E: torch.Tensor          # (B, m, n) float32, bfloat16 or exact int8
     fac: torch.Tensor        # (B, m, m) G^{-1} or (B, n, n) H^{-1}
     ete: Optional[torch.Tensor]  # (B, n, n) E_f^T E_f in n-side mode
     b: torch.Tensor          # (B, n)
@@ -95,6 +111,53 @@ def smem_bytes(m: int, n: int) -> int:
 def fits(m: int, n: int) -> bool:
     """Whether K1 can hold one (m, n) instance on this card."""
     return smem_bytes(m, n) <= _SMEM_MAX
+
+
+def resident_bytes(m: int, n: int) -> int:
+    """Shared memory of a K1 block on the ``int8-resident`` route: the
+    carve-up of ``smem_bytes`` and, after it, the instance's one-byte E
+    (m n bytes, rounded up to 16).  The kernel refuses a launch of that
+    route with any other size."""
+    return smem_bytes(m, n) + (m * n + 15) // 16 * 16
+
+
+def resident_fits(m: int, n: int) -> bool:
+    """Whether one instance's one-byte E fits a K1 block beside the
+    vectors (CA-500's (256, 512) does, the xl tail's (1664, 2048) not)."""
+    return resident_bytes(m, n) <= _SMEM_MAX
+
+
+def one_byte_exact(E: torch.Tensor) -> Optional[torch.Tensor]:
+    """E as int8 where every entry is an integer in [-127, 127] (then the
+    copy is exact), else None.  One pass over E."""
+    copy = E.to(torch.int8)
+    if not bool(((copy.to(E.dtype) == E) & (copy != -128)).all()):
+        return None
+    return copy.contiguous()
+
+
+def window_operand(E: torch.Tensor, cfg: SolverConfig) -> torch.Tensor:
+    """E as K1 reads it: the exact one-byte copy where there is one
+    (``one_byte_exact``), else as the f32 or bf16 stream reads it
+    (``fused_stream.stream_operand``: bfloat16 under
+    ``matvec_dtype="bfloat16"``, else as stored).  One pass over E: make
+    it once per solve and pass it to each window as ``E_op``."""
+    if cfg.matvec_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"matvec_dtype {cfg.matvec_dtype!r}")
+    E8 = one_byte_exact(E)
+    return stream_operand(E, cfg) if E8 is None else E8
+
+
+def e_route(E_op: torch.Tensor) -> str:
+    """The route of a kernel operand (``window_operand``) into K1."""
+    B, m, n = E_op.shape
+    if E_op.dtype == torch.int8:
+        return "int8-resident" if resident_fits(m, n) else "int8-stream"
+    if E_op.dtype == torch.bfloat16:
+        return "bf16-stream"
+    if E_op.dtype == torch.float32:
+        return "f32-stream"
+    raise TypeError(f"E must be float32, bfloat16 or int8, got {E_op.dtype}")
 
 
 def check_fits(m: int, n: int) -> None:
@@ -251,7 +314,7 @@ class _Args(ctypes.Structure):
         "bestsol_out", "y1_out", "y2_out", "y3_out", "ex_out", "traj")] + [
         (name, ctypes.c_int) for name in (
             "B", "m", "n", "H", "window", "it0", "skip_cvg_at", "record",
-            "nside", "e_bf16", "rho_change_step", "incumbent_stride",
+            "nside", "e_route", "rho_change_step", "incumbent_stride",
             "feasible_incumbent", "smem_bytes")] + [
         (name, ctypes.c_float) for name in (
             "initial_rho", "log_learning_fact", "gamma0",
@@ -268,8 +331,7 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
     B, m, n = a.E.shape
     nside = a.ete is not None
     dev = a.E.device
-    if a.E.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"E must be float32 or bfloat16, got {a.E.dtype}")
+    route = e_route(a.E)
     if n % 4 or m % 4:
         raise ValueError(f"fused window needs m, n multiples of 4: {(m, n)}")
     check_fits(m, n)
@@ -293,6 +355,9 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
             raise TypeError(f"{name}: expected {want_dt}, got {t.dtype}")
     if not a.E.is_contiguous():
         raise ValueError("E must be contiguous")
+    if route == "int8-resident" and a.E.data_ptr() % 16:
+        raise ValueError("E: the resident copy reads 16-byte pieces; its "
+                         "data pointer is not 16-byte aligned")
 
     f32 = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
     i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=dev)
@@ -311,9 +376,10 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
         p(out.best_sol), p(out.y1), p(out.y2), p(out.y3), p(out.ex),
         p(out.traj),
         B, m, n, H, window, it0, -1 if skip_cvg_at is None else skip_cvg_at,
-        int(record), int(nside), int(a.E.dtype == torch.bfloat16),
+        int(record), int(nside), E_ROUTES.index(route),
         cfg.rho_change_step, cfg.incumbent_stride,
-        int(cfg.feasible_incumbent), smem_bytes(m, n),
+        int(cfg.feasible_incumbent),
+        resident_bytes(m, n) if route == "int8-resident" else smem_bytes(m, n),
         cfg.initial_rho, math.log(cfg.learning_fact), cfg.gamma0,
         math.log(cfg.gamma_factor), cfg.stop_threshold, cfg.std_threshold,
         cfg.pcg_tol * cfg.pcg_tol)
@@ -326,17 +392,15 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
 
 
 def window_inputs(state: lp_core.LpState, prob: LpProblem,
-                  cfg: SolverConfig, nfactor=None) -> WindowIn:
-    """Gather one window's operands from a solver state."""
+                  cfg: SolverConfig, nfactor=None,
+                  E_op: Optional[torch.Tensor] = None) -> WindowIn:
+    """Gather one window's operands from a solver state; E as the kernel
+    reads it, ``E_op`` or else ``window_operand(prob.E, cfg)``."""
     lp_core._wb_ratio(cfg)   # woodbury mode only
-    if cfg.matvec_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"matvec_dtype {cfg.matvec_dtype!r}")
-    E = prob.E
-    if cfg.matvec_dtype == "bfloat16":
-        E = E.to(torch.bfloat16)
     f = lambda t: t.float().contiguous()
     return WindowIn(
-        E=E.contiguous(), fac=f(nfactor[0] if nfactor else state.ginv),
+        E=window_operand(prob.E, cfg) if E_op is None else E_op,
+        fac=f(nfactor[0] if nfactor else state.ginv),
         ete=f(nfactor[1]) if nfactor else None, b=f(prob.b),
         rmask=f(prob.row_mask), x=f(state.x), z1=f(state.z1),
         z2=f(state.z2), z4=f(state.z4), f_eff=f(state.f_eff),
@@ -365,22 +429,24 @@ def window_state(state: lp_core.LpState, prob: LpProblem, cfg: SolverConfig,
 def lp_window_fused(state: lp_core.LpState, prob: LpProblem,
                     cfg: SolverConfig, window: int,
                     skip_cvg_at: Optional[int] = None, record: bool = False,
-                    nfactor=None):
+                    nfactor=None, E_op: Optional[torch.Tensor] = None):
     """Run ``window`` Woodbury-mode ADMM iterations in one kernel launch.
 
     ``record=True`` also returns the (B, n, window) trajectory.
     ``nfactor``: ``(hinv, ete)`` from ``woodbury.factorize_nside`` for
-    the direct n-side x-update (``state.ginv`` is then unused).  A CUDA
-    problem launches the kernel; a CPU problem runs ``window_plain``."""
-    global LAUNCHES
-    a = window_inputs(state, prob, cfg, nfactor)
+    the direct n-side x-update (``state.ginv`` is then unused).
+    ``E_op``: ``window_operand(prob.E, cfg)``, made by the caller once
+    per solve (else here).  A CUDA problem launches the kernel on the
+    route of that operand (``e_route``); a CPU problem runs
+    ``window_plain``."""
+    if prob.E.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fused window for device {prob.E.device}")
+    a = window_inputs(state, prob, cfg, nfactor, E_op)
     if prob.E.is_cuda:
         out = window_cuda(a, cfg, state.it, window, skip_cvg_at, record)
-        LAUNCHES += 1
-    elif prob.E.device.type == "cpu":
-        out = window_plain(a, cfg, state.it, window, skip_cvg_at, record)
+        LAUNCHES[e_route(a.E)] += 1
     else:
-        raise ValueError(f"no fused window for device {prob.E.device}")
+        out = window_plain(a, cfg, state.it, window, skip_cvg_at, record)
     return window_state(state, prob, cfg, window, out, record)
 
 
@@ -388,8 +454,12 @@ def lp_window_plain(state: lp_core.LpState, prob: LpProblem,
                     cfg: SolverConfig, window: int,
                     skip_cvg_at: Optional[int] = None, record: bool = False,
                     nfactor=None):
-    """``lp_window_fused`` through the plain version on any device."""
-    a = window_inputs(state, prob, cfg, nfactor)
+    """``lp_window_fused`` through the plain version on any device, on E
+    as stored (bfloat16 under ``matvec_dtype="bfloat16"``), not on its
+    one-byte copy, so a fault in the copy cannot hide from the
+    comparison."""
+    a = window_inputs(state, prob, cfg, nfactor,
+                      E_op=stream_operand(prob.E, cfg))
     out = window_plain(a, cfg, state.it, window, skip_cvg_at, record)
     return window_state(state, prob, cfg, window, out, record)
 
@@ -397,14 +467,20 @@ def lp_window_plain(state: lp_core.LpState, prob: LpProblem,
 def solve_fused_from(state: lp_core.LpState, prob: LpProblem,
                      cfg: SolverConfig, max_iters: Optional[int] = None,
                      window: int = 100, nfactor=None,
-                     skip_cvg_at: Optional[int] = None) -> lp_core.LpState:
+                     skip_cvg_at: Optional[int] = None,
+                     E_op: Optional[torch.Tensor] = None
+                     ) -> lp_core.LpState:
     """Continue a solve with fused windows until every instance is done
-    or ``max_iters`` is reached (one host check per window)."""
+    or ``max_iters`` is reached (one host check per window).  E's kernel
+    operand is ``E_op`` or made here, once for all the windows."""
     if max_iters is None:
         max_iters = cfg.max_iters
+    if E_op is None:
+        E_op = window_operand(prob.E, cfg)
     while state.it < max_iters and not bool(state.done.all()):
         state = lp_window_fused(state, prob, cfg, window,
-                                skip_cvg_at=skip_cvg_at, nfactor=nfactor)
+                                skip_cvg_at=skip_cvg_at, nfactor=nfactor,
+                                E_op=E_op)
     return state
 
 

@@ -25,6 +25,7 @@ package's while loop does.  Rule-fixing counters are not updated.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import NamedTuple, Optional
 
@@ -79,31 +80,57 @@ def _sphere_scale(shift_sq, n_act, p: int):
     return (n_act ** (1.0 / p)) / (2.0 * nrm)
 
 
-def _smem_bytes(m: int, nb: int, e_bytes: int) -> int:
-    """``smem_bytes`` of csrc/stream_sweep.cu: M as float4 rows, the A
-    and transpose-part buffers, and the staged (m, nb) tile of E with
-    an odd number of words per row."""
-    return m * 16 + m * (nb * e_bytes // 4 + 1) * 4 + 16 * 4 * nb * 4 \
-        + nb * 8 * 4
+#: the kernel's warps per block, columns per unit of work, widest tile,
+#: vectors staged per tile and ring depth limit (``NWARP``, ``UNIT``,
+#: ``NB_MAX``, ``NVEC``, ``MAX_STAGES`` in csrc/stream_sweep.cu)
+_NWARP, _UNIT, _NB_MAX, _NVEC, _MAX_STAGES = 16, 32, 16, 7, 4
 
 
-def _pick_nb(m: int, e_bytes: int) -> int:
-    """The kernel's column-tile width: the widest of 32, 16, 8 columns
-    whose staged (m, nb) tile fits a thread block's shared memory."""
+def _smem_bytes(m: int, cpr: int, stages: int) -> int:
+    """``smem_bytes`` of csrc/stream_sweep.cu: M as float4 rows, the
+    warps' transpose sums and A of two tiles, then ``stages`` ring stages
+    of m rows of ``cpr`` 16-byte chunks and the 7 staged column-vector
+    slices."""
+    fixed = m * 16 + _NWARP * 32 * 4 + 2 * _NB_MAX * 8 * 4
+    return fixed + stages * (m * 16 * cpr + _NVEC * _NB_MAX * 4)
+
+
+@functools.cache
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+class SweepPlan(NamedTuple):
+    """How K3 cuts a sweep at (m, n): 16-byte chunks per staged row, ring
+    stages, tile columns, blocks of the persistent grid, and the shared
+    memory of one block."""
+    cpr: int
+    stages: int
+    nb: int
+    grid: int
+    smem: int
+
+
+def _plan(B: int, m: int, n: int, e_bytes: int, sms: int) -> SweepPlan:
+    """The kernel's plan (``plan_cpr``/``plan_stages`` of
+    csrc/stream_sweep.cu, which refuses any other): two chunks per row
+    where three such stages fit a block's shared memory (the tiles being
+    transposed and forwarded, and one in flight), else one; then as many
+    stages as fit, at most four; one block per SM, at most one per unit
+    of 32 columns.  cpr and the stages depend on m alone, so bf16 and f32
+    E take the same row parts and the same units."""
     if m > _M_MAX:
         raise ValueError(f"the stream sweep takes m <= {_M_MAX}, got {m}")
-    for nb in (32, 16, 8):
-        if _smem_bytes(m, nb, e_bytes) <= _SMEM_MAX:
-            return nb
-    raise ValueError(f"no column tile fits shared memory at m={m}")
-
-
-def _pick_cw(n: int) -> int:
-    """Columns walked by one thread block (n / cw blocks per instance)."""
     if n % 128:
         raise ValueError(f"the stream sweep needs n a multiple of 128, "
                          f"got {n}")
-    return 256 if n % 256 == 0 else 128
+    cpr = 2 if _smem_bytes(m, 2, 3) <= _SMEM_MAX else 1
+    fixed = _smem_bytes(m, cpr, 0)
+    stages = min(_MAX_STAGES, (_SMEM_MAX - fixed) //
+                 (_smem_bytes(m, cpr, 1) - fixed))
+    grid = min(sms, B * n // _UNIT)
+    return SweepPlan(cpr=cpr, stages=stages, nb=cpr * 16 // e_bytes,
+                     grid=grid, smem=_smem_bytes(m, cpr, stages))
 
 
 def stream_operand(E: torch.Tensor, cfg: SolverConfig) -> torch.Tensor:
@@ -194,7 +221,8 @@ class _Args(ctypes.Structure):
         "E", "M", "rhs", "x0", "shift", "z1", "z2", "b", "free_f", "s",
         "V", "F", "acc", "f_part", "s_part")] + [
         (name, ctypes.c_int) for name in (
-            "B", "m", "n", "nb", "cw", "e_bf16")] + [
+            "B", "m", "n", "nb", "cpr", "stages", "grid",
+            "e_bf16")] + [
         (name, ctypes.c_float) for name in ("rho", "gamma", "rho_nx")]
 
 
@@ -220,20 +248,25 @@ def sweep_cuda(E, M, rhs, x0, shift, z1, z2, b, free_f, s,
                              f"on {dev}, got {tuple(t.shape)} on {t.device}")
         if name != "E" and t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    for name, t in (("E", E), *((k, v[0]) for k, v in vecs.items()
+                                  if k not in ("M", "s"))):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the sweep copies 16-byte pieces; its "
+                             "data pointer is not 16-byte aligned")
     e_bytes = E.element_size()
-    nb, cw = _pick_nb(m, e_bytes), _pick_cw(n)
+    plan = _plan(B, m, n, e_bytes, _sm_count(dev))
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     out = SweepOut(V=f32(B, 12, n), F=f32(B, 2 * _NF, m), acc=f32(B, _NACC))
-    f_part, s_part = f32(B, n // cw, 2 * _NF, m), f32(B, 14, n)
+    f_part = f32(plan.grid + B - 1, 2 * _NF, m)
+    s_part = f32(B, 14, n)
     p = build.ptr
     args = _Args(p(E), p(M), p(rhs), p(x0), p(shift), p(z1), p(z2), p(b),
                  p(free_f), p(s), p(out.V), p(out.F), p(out.acc), p(f_part),
-                 p(s_part), B, m, n, nb, cw, int(e_bytes == 2),
-                 rho, gamma, rho_nx)
+                 p(s_part), B, m, n, plan.nb, plan.cpr, plan.stages,
+                 plan.grid, int(e_bytes == 2), rho, gamma, rho_nx)
     lib = build.library()
     build.check_struct(lib, "lpbox_stream_sweep_args_size", _Args)
-    if lib.lpbox_stream_sweep_smem(m, nb, e_bytes) != \
-            _smem_bytes(m, nb, e_bytes):
+    if lib.lpbox_stream_sweep_smem(m, plan.cpr, plan.stages) != plan.smem:
         raise RuntimeError("stream sweep: shared-memory size differs "
                            "between the wrapper and the kernel")
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -39,7 +39,8 @@ from ..core import lp
 from ..core.problem import LpProblem
 from ..models.fused_policy import pack_policy_weights, policy_scores_fused
 from ..ops import woodbury
-from ..ops.fused_lp import fits, lp_window_fused, solve_fused_from
+from ..ops.fused_lp import e_route, fits, lp_window_fused, \
+    solve_fused_from, window_operand
 
 
 def traj_to_tokens(rows: torch.Tensor, pcfg: PolicyConfig) -> torch.Tensor:
@@ -107,12 +108,14 @@ def _route(m: int, n: int) -> str:
 
 
 def _policy_window(state, prob, packed, cfg, pcfg, ws, route, margins,
-                   streak1, streak0):
+                   streak1, streak0, E_op=None):
     """One recorded window, its policy scores, the streak update and the
-    fix.  Returns the state, the fix vector (B, n) in {-1, 0, 1} and the
-    streaks."""
+    fix.  ``E_op``: E as K1 reads it (``window_operand``) on the K1
+    route.  Returns the state, the fix vector (B, n) in {-1, 0, 1} and
+    the streaks."""
     if route == "k1":
-        state, traj = lp_window_fused(state, prob, cfg, ws, record=True)
+        state, traj = lp_window_fused(state, prob, cfg, ws, record=True,
+                                      E_op=E_op)
     else:
         state, traj = lp.solve_window(state, prob, cfg, ws, record=True)
     sig = policy_scores_fused(packed, traj.reshape(-1, ws), pcfg
@@ -130,9 +133,11 @@ def _policy_window(state, prob, packed, cfg, pcfg, ws, route, margins,
 def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
                   max_iter, route):
     """Phase 1: recorded windows, policy scoring and streak fixing.
-    Returns the state and the largest free-column / supported-row
-    counts over the batch (host integers)."""
+    Returns the state, the largest free-column / supported-row counts
+    over the batch (host integers) and, on the K1 route, E's route into
+    K1 (else None)."""
     margins = fix_margins(prob.b, prob.var_mask, pcfg)
+    E_op = window_operand(prob.E, cfg) if route == "k1" else None
     streak1 = torch.zeros(state.x.shape, dtype=torch.int32,
                           device=state.x.device)
     streak0 = torch.zeros_like(streak1)
@@ -141,12 +146,13 @@ def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
            and not bool(state.done.all())):
         state, _, streak1, streak0 = _policy_window(
             state, prob, packed, cfg, pcfg, ws, route, margins, streak1,
-            streak0)
+            streak0, E_op)
         w += 1
     support = ((prob.E.abs() > 0) & state.free[:, None, :]).any(-1) \
         & prob.row_mask
     return (state, int(state.free.sum(-1).max()),
-            int(support.sum(-1).max()))
+            int(support.sum(-1).max()),
+            None if E_op is None else e_route(E_op))
 
 
 def _bucket(count: int, lo: int, hi: int) -> int:
@@ -177,7 +183,8 @@ def _tail_phase(state, orig_prob, cfg, n_new, m_new, rho_boost, max_iter,
     """Phase 2: compaction, rho fast-forward, residual solve to
     convergence (K1, n-side factor when the bucket has n <= m, or
     ``core.lp`` windows of ``ws`` where K1 cannot hold the bucket),
-    scatter + selection.  Returns the route with the results."""
+    scatter + selection.  Returns the results, the route and, on the K1
+    route, E's route into K1 (else None)."""
     prob = orig_prob
     fixed_full, free_full = state.fixed_val, state.free
     B, n_full = state.x.shape
@@ -195,14 +202,18 @@ def _tail_phase(state, orig_prob, cfg, n_new, m_new, rho_boost, max_iter,
         state = lp.refresh_et_next(state.replace(it=state.it + rho_boost),
                                    prob, cfg)
     route = _route(prob.m, prob.n)
+    k1_route = None
     if route == "k1":
+        E_op = window_operand(prob.E, cfg)
+        k1_route = e_route(E_op)
         nfactor = None
         if prob.n <= prob.m:
             nf = woodbury.factorize_nside(prob.E, state.free,
                                          lp._factor_ratio(cfg))
             nfactor = (nf.hinv, nf.ete)
         state = solve_fused_from(state, prob, cfg, max_iters=max_iter,
-                                 window=max(ws, 1000), nfactor=nfactor)
+                                 window=max(ws, 1000), nfactor=nfactor,
+                                 E_op=E_op)
     else:
         # the JAX package's _residual_phase_xla (its l2f.py:640-650)
         while state.it < max_iter and not bool(state.done.all()):
@@ -210,7 +221,8 @@ def _tail_phase(state, orig_prob, cfg, n_new, m_new, rho_boost, max_iter,
     sol, obj, infeas, n_fixed = _finalize(state, idx_map, fixed_full,
                                           free_full, orig_prob,
                                           repair_rounds, swap_rounds)
-    return state, sol, obj, lp.objective(state), infeas, n_fixed, route
+    return (state, sol, obj, lp.objective(state), infeas, n_fixed, route,
+            k1_route)
 
 
 def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
@@ -229,8 +241,11 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     ``tail_rho_step`` sets rho_change_step for the residual phase only.
     ``timings`` (a dict) receives the phase wall times, each ended by a
     device synchronisation, the tail's buckets, whether its bucket has
-    n <= m (K1's n-side mode on the K1 route) and each phase's route,
-    ``policy_route`` and ``tail_route``, ``"k1"`` or ``"windows"``.  Returns ``(final_state, out)`` with the
+    n <= m (K1's n-side mode on the K1 route), each phase's route,
+    ``policy_route`` and ``tail_route``, ``"k1"`` or ``"windows"``, and
+    on the K1 route E's route into K1, ``policy_e_route`` and
+    ``tail_e_route`` (``ops.fused_lp.E_ROUTES``; None on the windows
+    route).  Returns ``(final_state, out)`` with the
     full-width binary solution, objective, iterations, infeasible rows
     and fixing information."""
 
@@ -249,8 +264,9 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     state = lp.init_state(prob, cfg)
     packed = pack_policy_weights(model)
     policy_route = _route(prob.m, prob.n)
-    state, mf, mr = _policy_phase(state, prob, packed, cfg, pcfg, ws,
-                                  policy_windows, max_iter, policy_route)
+    state, mf, mr, policy_e_route = _policy_phase(
+        state, prob, packed, cfg, pcfg, ws, policy_windows, max_iter,
+        policy_route)
     t0 = _mark("policy_s", t0)
 
     fixed_full, free_full = state.fixed_val, state.free
@@ -258,7 +274,8 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     m_b = _bucket(mr, m_min_bucket, prob.m)
     cfg_tail = cfg if tail_rho_step is None \
         else cfg.replace(rho_change_step=tail_rho_step)
-    state, sol_full, obj, obj_last, infeas, n_fixed, tail_route = \
+    state, sol_full, obj, obj_last, infeas, n_fixed, tail_route, \
+        tail_e_route = \
         _tail_phase(state, prob, cfg_tail, n_b, m_b, rho_boost_iters,
                     max_iter, ws, repair_rounds, swap_rounds,
                     cfg_changed=cfg_tail is not cfg)
@@ -268,6 +285,8 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
         timings["nside"] = n_b <= m_b
         timings["policy_route"] = policy_route
         timings["tail_route"] = tail_route
+        timings["policy_e_route"] = policy_e_route
+        timings["tail_e_route"] = tail_e_route
     return state, {
         "solution": sol_full,
         "obj": obj,

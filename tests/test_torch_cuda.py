@@ -1,5 +1,6 @@
 """K1 to K4 and P1 to P3 against their plain versions on a CUDA device,
-K1's refusal of the xl shape and one l2f policy window at that shape.
+K1's one-byte E routes against its f32 route bit for bit, K1's refusal
+of the xl shape and one l2f policy window at that shape.
 
 Marked ``cuda``: skipped where there is no card (``torch.cuda`` is
 asked inside the fixture, never at import).  On the card:
@@ -14,7 +15,9 @@ absolute on the sigmoids.  One K3 sweep: 1e-4 relative to
 max(1, max |ref|) per output (f32 sums over m and n in another order);
 K4 and P1-P3: 1e-5 relative to max |ref|.  K3, K4 and P1-P3 sum in a
 fixed order without atomics, so a repeat launch, and K3 on bf16 and on
-f32 E (0/1 entries), give the same bits.
+f32 E (0/1 entries), give the same bits.  K1's one-byte routes decode
+each entry exactly and keep the f32 route's order of sums, so they give
+its bits.
 """
 
 from pathlib import Path
@@ -82,10 +85,10 @@ def test_k1_matches_plain(prob, mode):
     if mode == "nside":
         nf = woodbury.factorize_nside(prob.E, s0.free, 2.0)
         kw["nfactor"] = (nf.hinv, nf.ete)
-    before = fused_lp.LAUNCHES
+    before = sum(fused_lp.LAUNCHES.values())
     k = fused_lp.lp_window_fused(s0, prob, kcfg, 20, **kw)
     p = fused_lp.lp_window_plain(s0, prob, cfg, 20, **kw)
-    assert fused_lp.LAUNCHES == before + 1
+    assert sum(fused_lp.LAUNCHES.values()) == before + 1
     if record:
         (k, tk), (p, tp) = k, p
         assert (tk - tp).abs().max().item() <= 1e-3
@@ -111,6 +114,60 @@ def test_k1_matches_plain(prob, mode):
             assert bool((getattr(k, f)[d] == v[d]).all()), f
         if record:
             assert bool((tk[d] == s0.x[d][..., None]).all())
+
+
+def random_lp(cuda, B, m, n, density, seed):
+    """B random 0/1 LPs of shape (m, n) on the card."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    E = (torch.rand(B, m, n, device=cuda, generator=g) < density).float()
+    return LpProblem(b=-torch.rand(B, n, device=cuda, generator=g) * 100,
+                     E=E, f=torch.ones(B, m, device=cuda),
+                     row_mask=torch.ones(B, m, dtype=torch.bool,
+                                         device=cuda),
+                     var_mask=torch.ones(B, n, dtype=torch.bool,
+                                         device=cuda))
+
+
+@pytest.mark.parametrize("route", ["int8-resident", "int8-stream"])
+@pytest.mark.parametrize("shape", ["ca60", "ca500", "tails"])
+def test_k1_one_byte_routes_match_f32(prob, prob500, shape, route,
+                                      monkeypatch):
+    """Each one-byte route against the f32-stream launch, bit for bit on
+    every output, trajectories included: m side recorded with incumbent
+    stride 8, and n side.  ``tails``: (m, n) = (52, 100), rows short of a
+    warp's share and columns short of a lane sweep.  The stream route is
+    taken at these shapes by lowering K1's limit to the carve-up alone,
+    so the one-byte E no longer fits beside it."""
+    p = {"ca60": prob, "ca500": prob500,
+         "tails": random_lp(prob.E.device, 3, 52, 100, 0.1, 5)}[shape]
+    if route == "int8-stream":
+        monkeypatch.setattr(fused_lp, "_SMEM_MAX",
+                            fused_lp.smem_bytes(p.m, p.n))
+    assert fused_lp.e_route(fused_lp.window_operand(p.E, CFG)) == route
+    cfg = CFG.replace(incumbent_stride=8)
+    s0 = lp.init_state(p, cfg)
+    nf = woodbury.factorize_nside(p.E, s0.free, 2.0)
+    for kw in ({"record": True, "skip_cvg_at": 0},
+               {"nfactor": (nf.hinv, nf.ete), "skip_cvg_at": 0}):
+        before = dict(fused_lp.LAUNCHES)
+        k = fused_lp.lp_window_fused(s0, p, cfg, 20, **kw)
+        assert fused_lp.LAUNCHES[route] == before[route] + 1
+        # the same window with K1 reading E as stored: the f32 route
+        a = fused_lp.window_inputs(s0, p, cfg, kw.get("nfactor"))
+        record = kw.get("record", False)
+        f = fused_lp.window_state(
+            s0, p, cfg, 20, fused_lp.window_cuda(
+                a._replace(E=p.E), cfg, s0.it, 20, 0, record), record)
+        if kw.get("record"):
+            (k, tk), (f, tf) = k, f
+            assert torch.equal(tk, tf)
+        for name in ("x", "z1", "z2", "z4", "y1", "y2", "y3", "ex",
+                     "obj_ring", "obj_count", "done", "cur_obj",
+                     "best_bin_obj", "best_sol"):
+            assert torch.equal(getattr(k, name), getattr(f, name)), name
+        pl = fused_lp.lp_window_plain(s0, p, cfg, 20, **kw)
+        pl = pl[0] if kw.get("record") else pl
+        assert (k.x - pl.x).abs().max().item() <= 1e-3
 
 
 @pytest.mark.parametrize("mode", ["chunk", "sliding"])
@@ -155,6 +212,27 @@ def test_k3_matches_plain(prob, prob500, shape):
     before = fused_stream.LAUNCHES
     k = fused_stream.sweep_cuda(*k3_args(p, s, carry, "bfloat16"))
     assert fused_stream.LAUNCHES == before + 1
+    ref = fused_stream.sweep_plain(*k3_args(p, s, carry, "float32"))
+    for name, a, b in zip(ref._fields, k, ref):
+        err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        assert err <= 1e-4, (name, err)
+    again = fused_stream.sweep_cuda(*k3_args(p, s, carry, "bfloat16"))
+    f32 = fused_stream.sweep_cuda(*k3_args(p, s, carry, "float32"))
+    for a, b, c in zip(k, again, f32):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("B, m, n", [(3, 200, 640), (2, 1100, 1024),
+                                     (1, 2100, 256), (1, 4096, 256)])
+def test_k3_matches_plain_off_tile_rows(cuda, B, m, n):
+    """K3 at m that is not a multiple of the 256-row parts, the 480 rows
+    of a forward pass or a warp's 32 rows, with units that split
+    instances between blocks, and past m = 2036 (one 16-byte chunk per
+    staged row; at m = 4096 two stages, no tile in flight): against the
+    plain version, and bf16 / f32 E and a repeat launch bit for bit."""
+    p = random_lp(cuda, B, m, n, 0.02, m)
+    s, carry = k3_start(p)
+    k = fused_stream.sweep_cuda(*k3_args(p, s, carry, "bfloat16"))
     ref = fused_stream.sweep_plain(*k3_args(p, s, carry, "float32"))
     for name, a, b in zip(ref._fields, k, ref):
         err = (a - b).abs().max().item() / max(1.0, b.abs().max().item())
@@ -226,21 +304,13 @@ def test_probe_matches_plain(cuda, name, shape):
 @pytest.fixture(scope="module")
 def prob_xl(cuda):
     """Eight random 0/1 LPs at the xl rung's padded shape (1664, 4096)."""
-    g = torch.Generator(cuda).manual_seed(0)
-    B, m, n = 8, 1664, 4096
-    E = (torch.rand(B, m, n, device=cuda, generator=g) < 0.004).float()
-    return LpProblem(b=-torch.rand(B, n, device=cuda, generator=g) * 100,
-                     E=E, f=torch.ones(B, m, device=cuda),
-                     row_mask=torch.ones(B, m, dtype=torch.bool,
-                                         device=cuda),
-                     var_mask=torch.ones(B, n, dtype=torch.bool,
-                                         device=cuda))
+    return random_lp(cuda, 8, 1664, 4096, 0.004, 0)
 
 
 def test_k1_refuses_xl_shape(prob_xl):
     assert not fused_lp.fits(prob_xl.m, prob_xl.n)
     s0 = lp.init_state(prob_xl, CFG)
-    before = fused_lp.LAUNCHES
+    before = dict(fused_lp.LAUNCHES)
     with pytest.raises(ValueError, match="232448 bytes"):
         fused_lp.lp_window_fused(s0, prob_xl, CFG, 2)
     torch.cuda.synchronize()
@@ -259,7 +329,7 @@ def test_l2f_policy_window_at_xl(prob_xl):
         load_policy(CKPT, device=prob_xl.device))
     s0 = lp.init_state(prob_xl, cfg)
     zeros = torch.zeros(s0.x.shape, dtype=torch.int32, device=s0.x.device)
-    k1, k2 = fused_lp.LAUNCHES, fused_policy.LAUNCHES
+    k1, k2 = dict(fused_lp.LAUNCHES), fused_policy.LAUNCHES
     st, vec, streak1, streak0 = l2f._policy_window(
         s0, prob_xl, packed, cfg, pcfg, 100, route,
         l2f.fix_margins(prob_xl.b, prob_xl.var_mask, pcfg), zeros, zeros)

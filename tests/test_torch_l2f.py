@@ -63,6 +63,8 @@ def test_l2f_compact_matches_jax():
     oj, ot, tm = _compact_both(use_fused=True)
     _assert_l2f_agrees(oj, ot, tm)
     assert tm["policy_route"] == tm["tail_route"] == "k1"
+    # CA's 0/1 E is exact in one byte and small enough to stay resident
+    assert tm["policy_e_route"] == tm["tail_e_route"] == "int8-resident"
 
 
 def test_l2f_windows_route_matches_jax_unfused(monkeypatch):
@@ -79,6 +81,7 @@ def test_l2f_windows_route_matches_jax_unfused(monkeypatch):
     oj, ot, tm = _compact_both(use_fused=False)
     _assert_l2f_agrees(oj, ot, tm)
     assert tm["policy_route"] == tm["tail_route"] == "windows"
+    assert tm["policy_e_route"] is None and tm["tail_e_route"] is None
 
 
 # (m, n) -> floats K1 needs: CA-500, the xl rung, xl with half the columns

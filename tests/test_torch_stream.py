@@ -175,8 +175,65 @@ def test_stream_refuses_what_it_does_not_port():
         fused_stream.lp_window_stream(s0, tp,
                                       CFG.replace(ginv_dtype="bfloat16"), 2)
     with pytest.raises(ValueError, match="m <= 4096"):
-        fused_stream._pick_nb(4224, 2)
-    assert fused_stream._pick_nb(1664, 2) == 32
-    assert fused_stream._pick_nb(1664, 4) == 16
-    assert fused_stream._pick_nb(4096, 2) == 16
-    assert fused_stream._pick_nb(4096, 4) == 8
+        fused_stream._plan(8, 4224, 4096, 2, 132)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_stream._plan(8, 1664, 4000, 2, 132)
+    plan = lambda m, e: fused_stream._plan(8, m, 4096, e, 132)[:3]
+    assert plan(1664, 2) == (2, 3, 16)
+    assert plan(1664, 4) == (2, 3, 8)
+    assert plan(4096, 2) == (1, 2, 8)
+    assert plan(4096, 4) == (1, 2, 4)
+
+
+# m -> (16-byte chunks per staged row, ring stages, shared memory bytes):
+# M as float4 rows 16 m, the 16 warps' sums 2048 and A of two tiles
+# 1024, then per stage m rows of 16 cpr bytes and 7 x 16 staged vector
+# floats (448 bytes)
+K3_PLAN = {256: (2, 4, 4096 + 3072 + 4 * (8192 + 448)),
+           1664: (2, 3, 26624 + 3072 + 3 * (53248 + 448)),
+           2036: (2, 3, 32576 + 3072 + 3 * (65152 + 448)),
+           2037: (1, 4, 32592 + 3072 + 4 * (32592 + 448)),
+           4096: (1, 2, 65536 + 3072 + 2 * (65536 + 448))}
+
+
+@pytest.mark.parametrize("m", sorted(K3_PLAN))
+def test_sweep_plan_closed_form(m):
+    """K3's shared memory and ring sizing in closed form (the kernel
+    refuses any other plan): two chunks per row up to m = 2036, where
+    three stages of 32-byte rows (the tiles transposed and forwarded, one
+    in flight) still fit 232 448 bytes, one beyond; at most four stages;
+    tiles of 32 bytes a row (16 bf16 or 8 f32 columns) or 16; one block
+    per SM, at most one per 32-column unit."""
+    cpr, stages, smem = K3_PLAN[m]
+    for e_bytes in (2, 4):
+        p = fused_stream._plan(8, m, 4096, e_bytes, 132)
+        assert (p.cpr, p.stages, p.smem) == (cpr, stages, smem)
+        assert p.nb == 16 * cpr // e_bytes and p.smem <= 232448
+        assert p.grid == 132
+    assert fused_stream._plan(2, m, 512, 2, 132).grid == 32   # 2 * 512 / 32
+
+
+@pytest.mark.parametrize("B, n, G", [(8, 4096, 132), (2, 512, 32),
+                                     (3, 640, 7), (1, 128, 4)])
+def test_sweep_units_cover_each_instance_once(B, n, G):
+    """The persistent sweep's split of the B * n / 32 column units over G
+    blocks, as csrc/stream_sweep.cu computes it: block g walks units
+    [g NU / G, (g+1) NU / G) and writes one F partial per instance it
+    touches, into slot g + b; the finish launch adds, for instance b, the
+    slots of blocks g_lo(b) .. g_hi(b).  Every slot is written once, each
+    instance's units are covered once, and the workspace holds
+    G + B - 1 slots."""
+    upi = n // 32
+    NU = B * upi
+    slots, writer = {}, {}
+    for g in range(G):
+        for u in range(g * NU // G, (g + 1) * NU // G):
+            slots.setdefault(g + u // upi, set()).add(u)
+            assert writer.setdefault(g + u // upi, g) == g   # one block
+    assert max(slots) < G + B - 1
+    for b in range(B):
+        g_lo = ((b * upi + 1) * G - 1) // NU
+        g_hi = (((b + 1) * upi) * G - 1) // NU
+        units = [slots[g + b] for g in range(g_lo, g_hi + 1)]
+        assert sorted(u for s in units for u in s) == \
+            list(range(b * upi, (b + 1) * upi))
