@@ -36,10 +36,15 @@ routes are required.
 Phases, cheapest first, each under its own deadline and a watchdog that
 turns a hang into a traceback and a non-zero exit: device, build (one
 nvcc process per source, started together; K1's and K3's registers and
-spills from ptxas, K3 at the xl block without spills), K1 (with planted
-faults that its limits must catch, and one CA instance with an entry of
-0.5 that must take the f32-stream route) and K2 against their plain
-PyTorch versions on the card, P1-P3 against theirs and the float64
+spills from ptxas, K3 at the xl block without spills; K2's encoder and
+classifier kernels, each with HMMA instructions in its SASS), K1 (with planted faults that its limits must
+catch, and one CA instance with an entry of 0.5 that must take the
+f32-stream route) and K2 against their plain PyTorch versions on the
+card (K2 also with a repeat launch that must give the same bits, a
+planted fault -- its operand made from weights whose last token's block
+of wc0 is zeroed -- that must cross K2_TOL, and a count of the rows the
+kernel and the plain version put on different sides of the fix margins
+0.02 and 0.98), P1-P3 against theirs and the float64
 einsum (with a planted fault) and the probe's entry point, the plain
 solve, the l2f solve, K1's exit for done instances from the plain
 solve's end state, the xl instances, K3 (with two planted faults) and K4 against their
@@ -47,11 +52,14 @@ plain versions on the first block of 8, the xl solve, a packed-symmetric
 window, the xl l2f solve, K2 and K1 against their plain versions on the
 operands the xl l2f solve gave them (its first policy window's 131 072
 trajectory rows; the tail's start state in its compacted bucket, with a
-planted fault), kernel timings (K1 also at that bucket); the whole
-script under 600 s.
+planted fault), kernel timings (K1 also at that bucket; K2 at 65 536
+rows split into its two kernels by the profiler, with its closed-form L2
+weight bytes and the card's mma.sync TF32 rate from
+``scripts/tc_rate.py``); the whole script under 600 s.
 Fails on a build or launch error, a kernel/plain disagreement, a
-one-byte K1 route that differs from the f32 route in one bit, a
-non-finite value, an infeasible instance, a kernel that its path did not
+planted fault that a kernel's limit does not catch, a repeat launch
+that differs, a one-byte K1 route that differs from the f32 route in
+one bit, a non-finite value, an infeasible instance, a kernel that its path did not
 launch, a K1 launch of the main path on another route than its data
 gives, an l2f mean objective gap above +2% against the plain solve, an
 xl mean objective more than 10% worse than the JAX package's TPU record,
@@ -166,8 +174,8 @@ def card_line():
 
 
 def ptxas_report(text):
-    """Registers and spill bytes of K1's and K3's instances, from the
-    build's ``ptxas -v`` output (empty for a cached build)."""
+    """Registers and spill bytes of K1's, K2's and K3's instances, from
+    the build's ``ptxas -v`` output (empty for a cached build)."""
     import re
     label = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
     out, cur = {}, None
@@ -179,11 +187,12 @@ def ptxas_report(text):
             k3 = re.search(r"sweep_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
             k1 = re.search(r"lp_window_kernelI(f|13__nv_bfloat16|a)Lb([01])E",
                            name)
+            k2 = re.search(r"(policy_(?:encoder|classifier)_kernel)", name)
             cur = (f"K3 sweep_kernel<{label[k3.group(1)]}, RPT={k3.group(2)}>"
                    if k3 else
                    f"K1 lp_window_kernel<{label[k1.group(1)]}, "
                    f"{'resident' if k1.group(2) == '1' else 'stream'}>"
-                   if k1 else None)
+                   if k1 else f"K2 {k2.group(1)}" if k2 else None)
             if cur:
                 out.setdefault(cur, {"registers": None, "stack": None,
                                      "spill_stores": None,
@@ -201,6 +210,30 @@ def ptxas_report(text):
         if m:
             out[cur]["registers"] = int(m.group(1))
     return out
+
+
+def sass_hmma(lib_path):
+    """HMMA (tensor-core) instructions in each K2 kernel's SASS, read by
+    ``cuobjdump -sass`` from the built library."""
+    import re
+    from lpbox_admm_tpu_torch.kernels import build
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    res = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {res.stderr}")
+    counts, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k2 = re.search(r"(policy_(?:encoder|classifier)_kernel)",
+                           m.group(1))
+            cur = f"K2 {k2.group(1)}" if k2 else None
+            if cur:
+                counts[cur] = 0
+        elif cur and re.search(r"\bHMMA\.", line):
+            counts[cur] += 1
+    return counts
 
 
 def cuda_ms(fn, reps):
@@ -501,20 +534,42 @@ def k1_done_check(st, prob, cfg, fused_lp, compare):
     return int(d.sum())
 
 
-def k2_check(fused_policy, packed, rows, pcfg, l2f, model=None):
-    """K2 against its plain version (and the torch module, given one) on
-    ``rows`` trajectory rows; returns the largest absolute error."""
-    sk = fused_policy.policy_scores_fused(packed, rows, pcfg)
-    sp = fused_policy.policy_scores_plain(packed, rows, pcfg.chunk_dim)
+def k2_check(fused_policy, packed, op, rows, pcfg, l2f, model=None):
+    """K2 (on the kernel operand ``op``) against its plain version (and
+    the torch module, given one) on ``rows`` trajectory rows, a repeat
+    launch that must give the same bits, and a planted fault that must
+    cross K2_TOL: the operand made from weights whose last token's block
+    of wc0 is zeroed, held against the plain version of the sound
+    weights.  Logs how many rows the kernel and the plain version put on
+    different sides of the fix margins 0.02 and 0.98 (not required).
+    Returns the largest absolute error."""
+    stride = fused_policy.stride_of(pcfg)
+    sk = fused_policy.policy_scores_fused(packed, rows, pcfg, op)
+    sp = fused_policy.policy_scores_plain(packed, rows, stride)
     k2_err = (sk - sp).abs().max().item()
+    again = fused_policy.policy_scores_cuda(packed, rows, stride, op)
+    T, E = packed.peb.shape
+    wc0 = packed.wc0.clone()
+    wc0[(T - 1) * E:].zero_()
+    bad = fused_policy.policy_operand(packed._replace(wc0=wc0))
+    fault = (fused_policy.policy_scores_cuda(packed, rows, stride, bad)
+             - sp).abs().max().item()
+    sides = {m: int(((sk > m) != (sp > m)).sum().item())
+             for m in (0.02, 0.98)}
     vs_module = ""
     if model is not None:
         sm = l2f.policy_scores(model, rows, pcfg)
         vs_module = f", vs module {(sk - sm).abs().max().item():.3e}"
     log(f"  K2 on {rows.shape[0]} trajectory rows: max abs err vs plain "
-        f"{k2_err:.3e} (tol {K2_TOL:g}){vs_module}")
+        f"{k2_err:.3e} (tol {K2_TOL:g}){vs_module}; repeat launch same "
+        f"bits {torch_equal(sk, again)}; planted fault (last token's wc0 "
+        f"block zeroed) {fault:.3e}; rows on different sides of 0.02 / "
+        f"0.98 (kernel vs plain): {sides[0.02]} / {sides[0.98]}")
     require(finite(sk) and k2_err <= K2_TOL,
             f"K2 on {rows.shape[0]} rows: error {k2_err:.3e}")
+    require(torch_equal(sk, again), "K2: a repeat launch gives the same bits")
+    require(fault > K2_TOL, f"K2 planted fault crosses {K2_TOL:g}: "
+            f"{fault:.3e}")
     return k2_err
 
 
@@ -886,6 +941,10 @@ def main():
             log(f"    ptxas: {name}: {r['registers']} registers, stack "
                 f"frame {r['stack']} B, spill stores {r['spill_stores']} B, "
                 f"loads {r['spill_loads']} B")
+        hmma = sass_hmma(so)
+        log(f"  SASS (cuobjdump): HMMA instructions {hmma}")
+        require(len(hmma) == 2 and all(hmma.values()),
+                f"both K2 kernels run on the tensor cores: {hmma}")
         if not info.get("cached"):
             path_k3 = ptxas.get("K3 sweep_kernel<bf16, RPT=4>")
             require(path_k3 is not None and path_k3["spill_stores"] == 0
@@ -893,6 +952,7 @@ def main():
                     f"K3 at the xl block spills no registers: {path_k3}")
     summary["build_s"] = info["seconds"]
     summary["ptxas"] = ptxas
+    summary["k2_sass_hmma"] = hmma
     summary["build_phase_s"] = ph.seconds
 
     with Phase("generate", 120) as ph:
@@ -910,8 +970,9 @@ def main():
 
     model = load_policy(CKPT, device="cuda")
     packed = fused_policy.pack_policy_weights(model)
+    pop = fused_policy.policy_operand(packed)
     with Phase("k2-check", 60) as ph:
-        k2_err = k2_check(fused_policy, packed, rows, pcfg, l2f, model)
+        k2_err = k2_check(fused_policy, packed, pop, rows, pcfg, l2f, model)
     summary["k2_check_s"] = ph.seconds
 
     # --- the probe: its checks, then its entry point with counts from 0 ----
@@ -1157,7 +1218,14 @@ def main():
 
     # --- K2 and K1 at the xl l2f path's shapes, on its own operands -------
     with Phase("xl-l2f-check", 120) as ph:
-        k2x_err = k2_check(fused_policy, packed, k2_in.args[1], pcfg, l2f)
+        k2x_err = k2_check(fused_policy, packed, pop, k2_in.args[1], pcfg,
+                           l2f)
+        xrows = k2_in.args[1]
+        k2x_ms = cuda_ms(lambda: fused_policy.policy_scores_cuda(
+            packed, xrows, fused_policy.stride_of(pcfg), pop), 2)
+        log(f"  K2 on the xl policy window's {xrows.shape[0]} rows: "
+            f"{k2x_ms:.3f} ms a launch")
+        summary["k2_xl_ms"] = k2x_ms
         tail_k1 = None
         if xtm["tail_route"] == "k1":
             tail_k1 = (*tail_in.args[:3], tail_in.kwargs.get("nfactor"))
@@ -1166,7 +1234,7 @@ def main():
     del k2_in, tail_in
 
     with Phase("timing", 120) as ph:
-        kernels = timings(prob, cfg, pcfg, packed, rows, lp, fused_lp,
+        kernels = timings(prob, cfg, pcfg, packed, pop, rows, lp, fused_lp,
                           fused_policy, launches, k1_res,
                           max(k2_err, k2x_err))
         if tail_k1 is not None:
@@ -1188,7 +1256,7 @@ def main():
     return 0
 
 
-def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
+def timings(prob, cfg, pcfg, packed, pop, rows, lp, fused_lp, fused_policy,
             launches, k1_res, k2_err):
     """Kernel, plain-version times and bounds at the main path's shapes:
     K1 one 100-iteration m-side window of the 128-instance plain solve
@@ -1219,7 +1287,7 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
 
     R = rows.shape[0]
     run_k2 = lambda: fused_policy.policy_scores_cuda(packed, rows,
-                                                     pcfg.chunk_dim)
+                                                     pcfg.chunk_dim, pop)
     run_p2 = lambda: fused_policy.policy_scores_plain(packed, rows,
                                                       pcfg.chunk_dim)
     k2_ms = cuda_ms(run_k2, 3)
@@ -1234,7 +1302,14 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
     k2_flops = 2.0 * fma_row * R
     k2_bytes = rows.numel() * 4 + R * 4 + sum(
         t.numel() * 4 for t in packed)
-    k2_bound = max(k2_flops / PEAK_F32_FLOPS, k2_bytes / PEAK_HBM_BYTES)
+    # f32 accuracy on the tensor cores takes three TF32 passes
+    k2_bound = max(3 * k2_flops / PEAK_TF32_FLOPS,
+                   k2_bytes / PEAK_HBM_BYTES)
+    k2_l2 = k2_l2_bytes(R, T, C, L, F)
+    k2_split = kernel_split(run_k2, ("policy_encoder_kernel",
+                                     "policy_classifier_kernel"))
+    from lpbox_admm_tpu_torch.scripts import tc_rate
+    mma_rate = tc_rate.rate()
     log(f"  K1 window (B={B}, m={m}, n={n}, {W} its): {k1_ms:.3f} ms "
         f"int8-resident, plain {k1_plain_ms:.3f} ms, bound "
         f"{k1_bound * 1e3:.3f} ms ({k1_flops:.3e} flop, {k1_bytes:.3e} B); "
@@ -1242,8 +1317,16 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
             f"{r} {v['ms']:.3f} ms, {k1_bytes_it[r]:.4g} B/it (closed form)"
             for r, v in k1_routes.items()))
     log(f"  K2 ({R} rows): {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms, "
-        f"bound {k2_bound * 1e3:.3f} ms ({k2_flops:.3e} flop, "
-        f"{k2_bytes:.3e} B)")
+        f"bound {k2_bound * 1e3:.3f} ms (3 TF32 passes of {k2_flops:.3e} "
+        f"flop over {PEAK_TF32_FLOPS:.3g}; {k2_bytes:.3e} B; f32 on the "
+        f"CUDA cores {k2_flops / PEAK_F32_FLOPS * 1e3:.3f} ms); weights "
+        f"read from L2 {k2_l2['kernel']:.4g} B (closed form; 4-row blocks "
+        f"each reading every weight: {k2_l2['four_row_blocks']:.4g} B); "
+        f"per kernel (profiler) "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in k2_split.items())
+        + "; the card's mma.sync m16n8k8 TF32 rate (scripts/tc_rate.py) "
+        + ", ".join(f"{g} {v:.1f}" for g, v in mma_rate.items())
+        + " TFLOP/s")
     return [
         {"name": "K1 lp_window", "route": "cuda",
          "source": "lpbox_admm_tpu_torch/csrc/lp_window.cu",
@@ -1261,10 +1344,48 @@ def timings(prob, cfg, pcfg, packed, rows, lp, fused_lp, fused_policy,
          "replaces": "lpbox_admm_tpu/models/pallas_policy.py:152",
          "launches": launches["K2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound * 1e3,
-         "bound_by": "operations" if k2_flops / PEAK_F32_FLOPS
+         "bound_by": "operations" if 3 * k2_flops / PEAK_TF32_FLOPS
          >= k2_bytes / PEAK_HBM_BYTES else "bytes",
          "library_ms": None},
     ]
+
+
+def k2_l2_bytes(R, T, C, L, F, E=128):
+    """Weight bytes K2 reads from L2 for R rows, in closed form: every
+    encoder block (80 // T rows) streams each layer's dense weights
+    (f32) and reads the small vectors once; every classifier block (64
+    rows) reads wc0 and wc1 as TF32 hi|lo and its small vectors once.
+    ``four_row_blocks``: the earlier f32 FMA design, every 4-row block
+    reading all packed weights."""
+    enc_blocks = -(-R // (80 // T))
+    cls_blocks = -(-R // 64)
+    enc = L * (4 * E * E + 2 * E * F + 5 * E + F) + (T + C) * E
+    cls = 2 * (T * E * 256 + 256 * 128) + 256 + 128 + 128 * 16 + 16 + 16 + 1
+    packed = (C * E + T * E + L * (4 * E * E + 2 * E * F + 5 * E + F)
+              + T * E * 256 + 256 + 256 * 128 + 128 + 128 * 16 + 16 + 17)
+    return {"kernel": 4.0 * (enc_blocks * enc + cls_blocks * cls),
+            "four_row_blocks": 4.0 * -(-R // 4) * packed}
+
+
+def kernel_split(fn, names, reps=2):
+    """Device milliseconds per launch of each named kernel over ``reps``
+    calls of ``fn`` (torch.profiler; an empty dict where it sees no
+    device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key and e.device_time_total > 0:
+                total[name] = total.get(name, 0.0) + e.device_time_total
+                count[name] = count.get(name, 0) + e.count
+    return {k: total[k] / count[k] / 1e3 for k in total}
 
 
 def k1_work(a, out, cfg, it0, W):

@@ -32,6 +32,18 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&e)[4]) {
   e[0] = a.x; e[1] = a.y; e[2] = b.x; e[3] = b.y;
 }
 
+// c += A (16 x 8, row) B (8 x 8, col) on the tensor cores in TF32 with
+// f32 sums (P2, K2); fragments as in the PTX ISA's m16n8k8 .tf32 layout
+// (lane = 4g + t: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
+// b0 (t, g), b1 (t+4, g); c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Sum of K values over the whole block, returned to EVERY thread (so a
 // decision taken on the result is uniform across the block).  Every
 // thread of the block must call it; it ends with a barrier, so `red`

@@ -126,16 +126,6 @@ __device__ __forceinline__ void tf32_split(float a, unsigned& hi,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
 }
 
-// c += A (16 x 8, row) B (8 x 8, col); fragments as in the PTX ISA's
-// m16n8k8 .tf32 layout.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float lane_of(const float4& f, int s) {
   return s == 0 ? f.x : s == 1 ? f.y : s == 2 ? f.z : f.w;
 }
@@ -182,9 +172,9 @@ __device__ __forceinline__ void p2_chunk(const float4 (&A)[4],
       unsigned bh0, bl0, bh1, bl1;
       tf32_split(lane_of(B[j][0], s), bh0, bl0);
       tf32_split(lane_of(B[j][1], s), bh1, bl1);
-      mma_tf32(c[s], al[s], bh0, bh1);
-      mma_tf32(c[s], ah[s], bl0, bl1);
-      mma_tf32(c[s], ah[s], bh0, bh1);
+      lpbox::mma_tf32(c[s], al[s], bh0, bh1);
+      lpbox::mma_tf32(c[s], ah[s], bl0, bl1);
+      lpbox::mma_tf32(c[s], ah[s], bh0, bh1);
     }
 #pragma unroll
     for (int q = 0; q < 4; ++q)

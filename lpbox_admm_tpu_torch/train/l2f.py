@@ -37,7 +37,8 @@ from torch import nn
 from ..config import PolicyConfig, SolverConfig
 from ..core import lp
 from ..core.problem import LpProblem
-from ..models.fused_policy import pack_policy_weights, policy_scores_fused
+from ..models.fused_policy import pack_policy_weights, policy_operand, \
+    policy_scores_fused
 from ..ops import woodbury
 from ..ops.fused_lp import e_route, fits, lp_window_fused, \
     solve_fused_from, window_operand
@@ -108,18 +109,19 @@ def _route(m: int, n: int) -> str:
 
 
 def _policy_window(state, prob, packed, cfg, pcfg, ws, route, margins,
-                   streak1, streak0, E_op=None):
+                   streak1, streak0, E_op=None, policy_op=None):
     """One recorded window, its policy scores, the streak update and the
     fix.  ``E_op``: E as K1 reads it (``window_operand``) on the K1
-    route.  Returns the state, the fix vector (B, n) in {-1, 0, 1} and
-    the streaks."""
+    route; ``policy_op``: the weights as K2 reads them
+    (``policy_operand``).  Returns the state, the fix vector (B, n) in
+    {-1, 0, 1} and the streaks."""
     if route == "k1":
         state, traj = lp_window_fused(state, prob, cfg, ws, record=True,
                                       E_op=E_op)
     else:
         state, traj = lp.solve_window(state, prob, cfg, ws, record=True)
-    sig = policy_scores_fused(packed, traj.reshape(-1, ws), pcfg
-                              ).reshape(state.x.shape)
+    sig = policy_scores_fused(packed, traj.reshape(-1, ws), pcfg,
+                              policy_op).reshape(state.x.shape)
     streak1 = torch.where(sig > 1.0 - margins, streak1 + 1,
                           torch.zeros_like(streak1))
     streak0 = torch.where(sig < margins, streak0 + 1,
@@ -131,8 +133,9 @@ def _policy_window(state, prob, packed, cfg, pcfg, ws, route, margins,
 
 
 def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
-                  max_iter, route):
-    """Phase 1: recorded windows, policy scoring and streak fixing.
+                  max_iter, route, policy_op=None):
+    """Phase 1: recorded windows, policy scoring and streak fixing
+    (``policy_op``: ``policy_operand(packed)``, made once per solve).
     Returns the state, the largest free-column / supported-row counts
     over the batch (host integers) and, on the K1 route, E's route into
     K1 (else None)."""
@@ -146,7 +149,7 @@ def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
            and not bool(state.done.all())):
         state, _, streak1, streak0 = _policy_window(
             state, prob, packed, cfg, pcfg, ws, route, margins, streak1,
-            streak0, E_op)
+            streak0, E_op, policy_op)
         w += 1
     support = ((prob.E.abs() > 0) & state.free[:, None, :]).any(-1) \
         & prob.row_mask
@@ -237,7 +240,8 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     """LP l2f solve with bucketed physical compaction.
 
     ``model`` is a ``models.policy`` encoder (``utils.checkpoint.
-    load_policy``); its weights are packed once for K2.
+    load_policy``); its weights are packed, and laid out as K2 reads
+    them, once per solve.
     ``tail_rho_step`` sets rho_change_step for the residual phase only.
     ``timings`` (a dict) receives the phase wall times, each ended by a
     device synchronisation, the tail's buckets, whether its bucket has
@@ -263,10 +267,11 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     t0 = time.perf_counter()
     state = lp.init_state(prob, cfg)
     packed = pack_policy_weights(model)
+    policy_op = policy_operand(packed)
     policy_route = _route(prob.m, prob.n)
     state, mf, mr, policy_e_route = _policy_phase(
         state, prob, packed, cfg, pcfg, ws, policy_windows, max_iter,
-        policy_route)
+        policy_route, policy_op)
     t0 = _mark("policy_s", t0)
 
     fixed_full, free_full = state.fixed_val, state.free

@@ -1,4 +1,5 @@
-"""K1 to K4 and P1 to P3 against their plain versions on a CUDA device,
+"""K1 to K4 and P1 to P3 against their plain versions on a CUDA device
+(K2 also at row counts off both of its kernels' blocks),
 K1's one-byte E routes against its f32 route bit for bit, K1's refusal
 of the xl shape and one l2f policy window at that shape.
 
@@ -11,11 +12,12 @@ in ``chip_smoke.py``: 1e-3 absolute on x, its copies y1/y2/y3, E x and
 the incumbent; 1e-3 on the duals divided by gamma*rho of the window's
 last iteration (the factor by which a dual step scales an error of x);
 1e-3 relative to max(1, |ref|) per instance on the objectives; 1e-4
-absolute on the sigmoids.  One K3 sweep: 1e-4 relative to
-max(1, max |ref|) per output (f32 sums over m and n in another order);
-K4 and P1-P3: 1e-5 relative to max |ref|.  K3, K4 and P1-P3 sum in a
-fixed order without atomics, so a repeat launch, and K3 on bf16 and on
-f32 E (0/1 entries), give the same bits.  K1's one-byte routes decode
+absolute on the sigmoids (K2's three TF32 passes; T = 5, 10 on seeded
+random modules, T = 20 on the shipped checkpoints).  One K3 sweep: 1e-4
+relative to max(1, max |ref|) per output (f32 sums over m and n in
+another order); K4 and P1-P3: 1e-5 relative to max |ref|.  K2, K3, K4
+and P1-P3 sum in a fixed order without atomics, so a repeat launch, and
+K3 on bf16 and on f32 E (0/1 entries), give the same bits.  K1's one-byte routes decode
 each entry exactly and keep the f32 route's order of sums, so they give
 its bits.
 """
@@ -31,6 +33,7 @@ from lpbox_admm_tpu_torch.config import LP_CONFIG, PolicyConfig
 from lpbox_admm_tpu_torch.core import lp
 from lpbox_admm_tpu_torch.core.problem import LpProblem
 from lpbox_admm_tpu_torch.models import fused_policy
+from lpbox_admm_tpu_torch.models.policy import build_policy
 from lpbox_admm_tpu_torch.ops import fused_lp, fused_stream, symm, woodbury
 from lpbox_admm_tpu_torch.ops.schedule import gamma_at, rho_at
 from lpbox_admm_tpu_torch.scripts import probe_dot
@@ -170,17 +173,54 @@ def test_k1_one_byte_routes_match_f32(prob, prob500, shape, route,
         assert (k.x - pl.x).abs().max().item() <= 1e-3
 
 
+K2_NETS = [("mha", 20), ("mlp", 20), ("mha", 10), ("mlp", 10),
+           ("mha", 5), ("mlp", 5)]
+
+
+def k2_packed(cuda, net, T):
+    """The shipped checkpoint at T = 20, else a seeded random module."""
+    if T == 20:
+        path = CKPT.replace("ca500_mha", f"ca500_{net}")
+        return fused_policy.pack_policy_weights(load_policy(path,
+                                                            device=cuda))
+    torch.manual_seed(T)
+    return fused_policy.pack_policy_weights(
+        build_policy(net, node_size=T).to(cuda))
+
+
 @pytest.mark.parametrize("mode", ["chunk", "sliding"])
-def test_k2_matches_plain(cuda, mode):
-    pcfg = PolicyConfig(net="mha", window_mode=mode)
-    pk = fused_policy.pack_policy_weights(load_policy(CKPT, device=cuda))
-    rows = torch.rand(301, 100, device=cuda,
-                      generator=torch.Generator(cuda).manual_seed(0))
-    before = fused_policy.LAUNCHES
+@pytest.mark.parametrize("net,T", K2_NETS,
+                         ids=[f"{n}-T{t}" for n, t in K2_NETS])
+def test_k2_matches_plain(cuda, net, T, mode):
+    """K2 at 1, 7 and 301 rows (block tails of both kernels): within
+    1e-4 of its plain version, one launch counted a call, and a repeat
+    launch gives the same bits."""
+    pcfg = PolicyConfig(net=net, node_size=T, window_mode=mode)
+    pk = k2_packed(cuda, net, T)
+    op = fused_policy.policy_operand(pk)
+    gen = torch.Generator(cuda).manual_seed(T)
+    for n in (1, 7, 301):
+        rows = torch.rand(n, 100, device=cuda, generator=gen)
+        before = fused_policy.LAUNCHES
+        sk = fused_policy.policy_scores_fused(pk, rows, pcfg, op)
+        assert fused_policy.LAUNCHES == before + 1
+        sp = fused_policy.policy_scores_plain(pk, rows,
+                                              fused_policy.stride_of(pcfg))
+        assert tuple(sk.shape) == (n,)
+        assert (sk - sp).abs().max().item() <= 1e-4
+        assert torch.equal(fused_policy.policy_scores_fused(pk, rows, pcfg,
+                                                            op), sk)
+
+
+def test_k2_matches_plain_past_a_policy_window(cuda):
+    """65 536 + 3 rows (a CA-500 policy window and a tail), the operand
+    made by the wrapper."""
+    pcfg = PolicyConfig(net="mha")
+    pk = k2_packed(cuda, "mha", 20)
+    rows = torch.rand(65536 + 3, 100, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(1))
     sk = fused_policy.policy_scores_fused(pk, rows, pcfg)
-    sp = fused_policy.policy_scores_plain(pk, rows,
-                                          fused_policy.stride_of(pcfg))
-    assert fused_policy.LAUNCHES == before + 1
+    sp = fused_policy.policy_scores_plain(pk, rows, 5)
     assert (sk - sp).abs().max().item() <= 1e-4
 
 

@@ -30,7 +30,7 @@ from jax.experimental import pallas as pl
 from lpbox_admm_tpu_torch.kernels import build
 from lpbox_admm_tpu_torch.scripts import probe_dot
 
-import torch_port_util  # noqa: F401  (one intra-op thread per worker)
+from torch_port_util import tf32_rna
 
 SCRIPT = Path(__file__).resolve().parent.parent / "scripts" / "probe_dot.py"
 JAX_KERNEL = {"batched_dot": "k_batched", "pairs": "k_pairs",
@@ -98,14 +98,6 @@ def test_probe_refuses_shapes_before_launch(name, shape, match):
     for fn in (probe_dot.launch, probe_dot.matvec):
         with pytest.raises(ValueError, match="device"):
             fn(name, E, v)
-
-
-def tf32_rna(x):
-    """``cvt.rna.tf32.f32`` on the bits: keep 10 of f32's 23 mantissa
-    bits, rounding to nearest with ties away from zero (add half of the
-    dropped range to the magnitude, then clear it)."""
-    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
-    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
 def test_tf32_rna_rounds_to_nearest_ties_away():

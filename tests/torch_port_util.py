@@ -149,3 +149,11 @@ def rel(a, b, scale=0.0):
     """max |a - b| over max(1, max |b|, scale)."""
     a, b = np_of(a).astype(np.float64), np_of(b).astype(np.float64)
     return np.abs(a - b).max() / max(1.0, np.abs(b).max(), scale)
+
+
+def tf32_rna(x):
+    """``cvt.rna.tf32.f32`` on the bits: keep 10 of f32's 23 mantissa
+    bits, rounding to nearest with ties away from zero (add half of the
+    dropped range to the magnitude, then clear it)."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
