@@ -36,6 +36,24 @@ and, on the packed-symmetric G^{-1} route, K4; and by
 records with ``core.lp`` windows (K1 cannot hold that shape) and whose
 tail runs in K1 when the compacted bucket fits it.
 
+The dense-LP options of ``core.lp`` on the CA-500 batch: the
+three-limb bfloat16 products (E v, E^T w, G^{-1} r) against float32 on
+the card, with a one-limb product as a planted fault; the bfloat16 store
+of G^{-1}; ``solve(rule_fixing=True)`` on 8 instances; ``solve_auto``,
+which must take K1 and give the plain solve's objective bit for bit.
+
+Then the very-large rung of the reference's instance ladder: its
+canonical (1000 items, 100 000 bids) instance, generated by the port's
+``generate_cauction(return_coo=True)`` in a worker process while the
+earlier phases run, as a struct problem with the Schur G^{-1}
+(``make_struct_problem``, ``build_struct_ginv``); the struct products and
+the Schur apply against float64 on the host; the plain struct solve
+through ``solve_auto`` (rho_change_step 12, cap 6700) and a profile of
+its iteration; ``l2f_solve_struct`` with ``ca500_mha``, K2 scoring every
+policy window on 100 000 rows, held against the float64 CPU oracle of
+``bench_cache/cpu_oracle_1000_100000.json``; K2 against its plain
+version on that window's rows.
+
 K1 takes CA's 0/1 E as an exact one-byte copy: resident in shared
 memory at CA-500 (the ``int8-resident`` route of the plain and the l2f
 solve), streamed at the xl l2f tail's bucket (``int8-stream``); each
@@ -57,12 +75,12 @@ kernel and the plain version put on different sides of the fix margins
 0.02 and 0.98), P1-P3 against theirs and the float64
 einsum (with a planted fault) and the probe's entry point, the plain
 solve, the l2f solve, K1's exit for done instances from the plain
-solve's end state, the train phase, the xl instances, K3 (with two planted faults) and K4 against their
+solve's end state, the dense-LP options, the train phase, the xl instances, K3 (with two planted faults) and K4 against their
 plain versions on the first block of 8, the xl solve, a packed-symmetric
 window, the xl l2f solve, K2 and K1 against their plain versions on the
 operands the xl l2f solve gave them (its first policy window's 131 072
 trajectory rows; the tail's start state in its compacted bucket, with a
-planted fault), kernel timings (K1 also at that bucket; K2 at 65 536
+planted fault), the mega rung, kernel timings (K1 also at that bucket; K2 at 65 536
 rows split into its two kernels by the profiler, with its closed-form L2
 weight bytes and the card's mma.sync TF32 rate from
 ``scripts/tc_rate.py``), and last the train phase's time split under the
@@ -79,14 +97,19 @@ from the CPU step, a compacting evaluation of the trained policy more
 than 10% worse than the plain oracle, an
 xl mean objective more than 10% worse than the JAX package's TPU record,
 or an xl l2f mean objective more than 10% worse than the xl plain
-solve's.  Prints one progress line per phase, a JSON ``kernels`` line,
+solve's, a three-limb product more than 1e-6 off float32 or a one-limb
+plant within it, a rule-fixing solve without fixes, ``solve_auto`` off
+K1 at CA-500, a mega instance of another shape, struct products more
+than 1e-5 off float64, an infeasible mega row, or a struct l2f objective
+more than 1% above the oracle.  Prints one progress line per phase, a JSON ``kernels`` line,
 the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+{...}}``; the cold run takes about 400 s of the 600 s budget.
 
 Needs a CUDA device: without one it exits non-zero at once.  It imports
-only the port, torch, numpy and the standard library, and writes
-nothing but the kernel build directory ``lpbox_admm_tpu_torch/_build``
-and the train phase's checkpoints in a temporary directory it removes.
+only the port, torch, numpy, scipy and the standard library, and writes
+nothing but the kernel build directory ``lpbox_admm_tpu_torch/_build``,
+the train phase's checkpoints and the mega instance in temporary
+directories it removes; it stops the generation worker before it exits.
 """
 
 import faulthandler
@@ -1246,10 +1269,327 @@ def stream_split(s0, prob0, cfg, E16, fused_stream, W=100):
             "device_idle_share": 1.0 - busy / (wall * 1e3 / W)}
 
 
+# --- the dense-LP options (CA-500) ------------------------------------------
+# The three-limb bfloat16 products (core.lp._mv, the JAX package's _emv)
+# against the float32 product on the same inputs: 1e-6 of max |ref| (three
+# limbs carry 24 mantissa bits, the f32 sums differ in order); one limb
+# (the planted fault) misses it by three orders (its 8 bits give 4e-3).
+EMV_TOL = 1e-6
+# solve(rule_fixing=True) on the first RULE_FIX_BATCH instances at the
+# solver's defaults (core.lp windows: 10 800 iterations in 28 s on an
+# H100 80GB HBM3 at 700 W; its counters first fix after some 3000)
+RULE_FIX_BATCH = 8
+
+
+def emv_errors(lp, E, ginv, seed=0):
+    """Relative errors of the bfloat16 products (E v, E^T w, G^{-1} r)
+    against float32 on the card, and of the one-limb plant."""
+    import torch
+    g = torch.Generator(device=E.device).manual_seed(seed)
+    B, m, n = E.shape
+    V = torch.rand((B, 2, n), generator=g, device=E.device) * 4 - 2
+    W = torch.rand((B, 4, m), generator=g, device=E.device) * 200 - 100
+    E16, G16 = E.to(torch.bfloat16), ginv.to(torch.bfloat16)
+    r = W[:, 0]
+    errs = {"E v": rel_to_ref(lp._mv_many(E16, V), lp._mv_many(E, V)),
+            "E^T w": rel_to_ref(lp._mtv_many(E16, W), lp._mtv_many(E, W)),
+            "G^-1 r": rel_to_ref(lp._ginv_apply(G16, r),
+                                 lp._mv(G16.float(), r))}
+    one = lp._limbs3(V)[..., :1].permute(0, 2, 1, 3).reshape(B, n, 2)
+    plant = lp._bf16_bmm(E16, one).transpose(1, 2)
+    errs["one-limb E v (planted)"] = rel_to_ref(plant, lp._mv_many(E, V))
+    return errs
+
+
+def lp_options_phase(prob, st_plain, cfg, lp, fused_lp):
+    """The dense-LP options on the CA-500 batch: the bfloat16 products
+    (``emv_errors``), the bfloat16 G^{-1} store, ``solve(rule_fixing=
+    True)`` on RULE_FIX_BATCH instances, and ``solve_auto`` (K1 route,
+    the plain solve's objective bit for bit).  Returns (summary, K1
+    launches of solve_auto)."""
+    import torch
+    out = {}
+    ginv = st_plain.ginv
+    errs = emv_errors(lp, prob.E, ginv)
+    log("  bfloat16 products vs float32 (rel to max |ref|): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    plant = errs.pop("one-limb E v (planted)")
+    require(max(errs.values()) <= EMV_TOL,
+            f"three-limb products within {EMV_TOL:g}: {errs}")
+    require(plant > EMV_TOL, f"one-limb plant misses {EMV_TOL:g}: {plant}")
+    out["emv_errs"], out["emv_plant"] = errs, plant
+
+    bcfg = cfg.replace(ginv_dtype="bfloat16")
+    stored = lp._ginv_store(ginv, bcfg)
+    back = stored.float()
+    gerr = ((back - ginv).abs() / ginv.abs().clamp_min(1e-30)).max().item()
+    log(f"  bfloat16 G^-1 store: {stored.dtype}, "
+        f"{stored.nbytes / 2**20:.1f} MiB (f32 {ginv.nbytes / 2**20:.1f}), "
+        f"round trip max rel {gerr:.2e} (one bf16 rounding <= 2^-8)")
+    require(stored.dtype == torch.bfloat16 and gerr <= 2.0 ** -8
+            and torch_equal(stored, ginv.to(torch.bfloat16)),
+            "bfloat16 G^-1 store")
+    s16 = lp.init_state(prob, bcfg)
+    require(s16.ginv.dtype == torch.bfloat16, "init_state stores bf16")
+
+    p8 = prob.replace(**{f: getattr(prob, f)[:RULE_FIX_BATCH] for f in (
+        "b", "E", "f", "row_mask", "var_mask")})
+    t0 = time.perf_counter()
+    sr = lp.solve(p8, cfg, rule_fixing=True)
+    _, robj, rinf = lp.select_solution(p8, lp.solution(sr),
+                                       lp.solution_best(sr))
+    torch.cuda.synchronize()
+    fixes = (~sr.free & p8.var_mask).sum(-1)
+    pobj = lp.objective_best(st_plain)[:RULE_FIX_BATCH]
+    log(f"  solve(rule_fixing=True) on {RULE_FIX_BATCH} instances: "
+        f"{time.perf_counter() - t0:.2f} s, it {sr.it}, fixes/instance "
+        f"{fixes.float().mean().item():.1f} (min {int(fixes.min())}), "
+        f"mean obj {robj.mean().item():.2f} (plain K1 incumbent "
+        f"{pobj.mean().item():.2f}), infeasible instances "
+        f"{int((rinf > 0).sum())}")
+    require(int(fixes.min()) > 0, "rule fixing fixes variables")
+    require(int((rinf > 0).sum()) == 0, "rule fixing: 0 infeasible")
+    require(finite(robj, sr.x), "rule fixing: finite")
+    out.update(rule_fix_it=sr.it, rule_fix_fixes=fixes.float().mean().item(),
+               rule_fix_mean_obj=robj.mean().item())
+
+    fused_lp.LAUNCHES.update(dict.fromkeys(fused_lp.E_ROUTES, 0))
+    t0 = time.perf_counter()
+    sa, path = lp.solve_auto(prob, cfg)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    k1 = sum(fused_lp.LAUNCHES.values())
+    same = torch_equal(lp.objective(sa), lp.objective(st_plain))
+    log(f"  solve_auto on the CA-500 batch: path {path}, {auto_s:.2f} s, it "
+        f"{sa.it}, K1 launches {k1}, objective equal to solve_fused's bit "
+        f"for bit: {same}")
+    require(path == "k1" and k1 > 0 and same,
+            "solve_auto takes K1 and gives solve_fused's objective")
+    out.update(auto_path=path, auto_s=auto_s)
+    return out, k1
+
+
+# --- the very-large rung: the reference ladder's (1000, 1e5) instance ----
+# The canonical instance of the JAX package's scripts/bench_sparse_rung.py
+# (the first draw of RandomState(2207 + n_bids)); its float64 CPU oracle
+# (bench_cache/cpu_oracle_1000_100000.json) is -98 792.28.  The plain
+# struct solve at README's settings (rho_change_step 12, cap 6700); the
+# struct l2f solve at scripts/mega_l2f.py's defaults with ca500_mha.
+MEGA_ITEMS, MEGA_BIDS = 1000, 100000
+MEGA_SHAPE, MEGA_NNZ = (19768, 100000), 559953
+MEGA_RHO_STEP, MEGA_CAP = 12, 6700
+MEGA_POLICY_WINDOWS = 3
+MEGA_GAP = 0.01                # l2f objective against the oracle
+# struct products and the Schur apply against float64 on the host: 1e-5
+# of max |ref| (f32 sums of at most a few hundred terms; the apply's
+# f32 blocks are the float64 ones rounded once)
+MEGA_TOL = 1e-5
+
+
+def _generate_mega(path):
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from lpbox_admm_tpu_torch.scripts import mega_l2f
+    p, (r, c, v, s) = mega_l2f.generate(MEGA_ITEMS, MEGA_BIDS, "bench")
+    np.savez(path, p=p, r=r, c=c, v=v, s=np.asarray(s))
+
+
+class MegaInstance:
+    """The mega instance generated in a worker process (about a minute of
+    host numpy) while the card runs the earlier phases; ``result()``
+    waits for it.  ``close()`` stops the worker and removes its file."""
+
+    def __init__(self):
+        import multiprocessing
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_mega_")
+        self.path = os.path.join(self.dir, "mega.npz")
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_generate_mega, args=(self.path,), daemon=True)
+        self.proc.start()
+
+    def result(self):
+        import numpy as np
+        self.proc.join()
+        require(self.proc.exitcode == 0,
+                f"mega generation worker exit code {self.proc.exitcode}")
+        with np.load(self.path) as z:
+            return (z["p"], (z["r"], z["c"], z["v"], tuple(z["s"])))
+
+    def close(self):
+        import shutil
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def mega_checks(prob, ginv, inst, row_map, struct_ginv):
+    """The struct products and the Schur apply on the card against
+    float64 on the host (scipy), on seeded vectors."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    _, (r, c, v, shape) = inst
+    E = prob.E
+    C = sp.csr_matrix((np.asarray(v, np.float64), (row_map[r], c)),
+                      shape=(E.m, E.n))
+    rng = np.random.RandomState(0)
+    x = rng.rand(E.n)
+    w = rng.randn(E.m)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))[None].to(E.device)
+    rel = lambda got, ref: float(np.abs(got - ref).max()
+                                 / max(np.abs(ref).max(), 1e-30))
+    errs = {"E v": rel(E.mv(t(x))[0].cpu().numpy(), C @ x),
+            "E^T w": rel(E.mtv(t(w))[0].cpu().numpy(), C.T @ w)}
+    sinv, Bm, dinv = struct_ginv.schur_blocks(C, E.m1, E.m2, 2.0)
+    m1 = E.m1
+    z2p = dinv * w[m1:]
+    z1 = sinv @ (w[:m1] - Bm @ z2p)
+    z = np.concatenate([z1, dinv * (w[m1:] - Bm.T @ z1)])
+    got = ginv.apply(t(w))[0].cpu().numpy().astype(np.float64)
+    errs["G^-1 r (Schur)"] = rel(got, z)
+    G = C @ C.T + 2.0 * sp.eye(E.m)
+    errs["G (G^-1 r) - r"] = rel(G @ got, w)
+    return errs
+
+
+def struct_split(prob, cfg, ginv, lp, W=20):
+    """W iterations of the plain struct solve from its start: the wall
+    per iteration (host clock, synchronised), then the same under the
+    profiler for the card's busy time and kernels per iteration; the
+    idle share is 1 - busy / wall."""
+    import torch
+    s0 = lp.init_state(prob, cfg, ginv=ginv)
+    lp.solve_window(s0, prob, cfg, 2, record=False, skip_cvg_at=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lp.solve_window(s0, prob, cfg, W, record=False, skip_cvg_at=0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / W
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        lp.solve_window(s0, prob, cfg, W, record=False, skip_cvg_at=0)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / W
+    kernels = sum(e.count for e in evs if e.self_device_time_total > 0) / W
+    return {"wall_ms_per_it": wall, "device_busy_ms_per_it": busy,
+            "device_kernels_per_it": kernels,
+            "device_idle_share": 1.0 - busy / wall}
+
+
+def mega_phase(mega_inst, model, packed, pcfg, lp, fused_policy, l2f):
+    """The very-large rung: the instance from the generation worker,
+    ``make_struct_problem`` and ``build_struct_ginv``, the product checks,
+    the plain struct solve through ``solve_auto`` and ``l2f_solve_struct``
+    with K2 scoring every policy window (counts from 0 before it, read
+    after it).  Returns (summary, K2 launches, the first policy window's
+    rows)."""
+    import numpy as np
+    import torch
+    from lpbox_admm_tpu_torch.config import LP_CONFIG
+    from lpbox_admm_tpu_torch.ops import struct_ginv
+    from lpbox_admm_tpu_torch.scripts import mega_l2f
+    from lpbox_admm_tpu_torch.train import l2f_struct
+    out = {}
+    t0 = time.perf_counter()
+    inst = mega_inst.result()
+    _, (r, c, v, shape) = inst
+    out["gen_wait_s"] = time.perf_counter() - t0
+    log(f"  instance: C {tuple(shape)}, {len(r)} nonzeros (generated in a "
+        f"worker; waited {out['gen_wait_s']:.2f} s)")
+    require(tuple(shape) == MEGA_SHAPE and len(r) == MEGA_NNZ,
+            f"the canonical (1000, 1e5) instance: {tuple(shape)}, {len(r)}")
+    oracle = mega_l2f.oracle_obj(MEGA_ITEMS, MEGA_BIDS)
+    require(oracle is not None, "the float64 CPU oracle is in the checkout")
+
+    t0 = time.perf_counter()
+    prob, ginv, row_maps = mega_l2f.build_struct(inst)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    E = prob.E
+    log(f"  struct problem + Schur G^-1: {out['build_s']:.2f} s; m1 {E.m1} "
+        f"m2 {E.m2} n {E.n}; device bytes E {E.nbytes() / 2**20:.1f} MiB, "
+        f"G^-1 {ginv.nbytes() / 2**20:.1f} MiB (dense f32 E would be "
+        f"{E.m * E.n * 4 / 2**30:.2f} GiB, dense G^-1 "
+        f"{E.m * E.m * 4 / 2**30:.2f} GiB)")
+    out.update(m1=E.m1, m2=E.m2, e_mib=E.nbytes() / 2**20,
+               ginv_mib=ginv.nbytes() / 2**20)
+
+    errs = mega_checks(prob, ginv, inst, row_maps[0], struct_ginv)
+    log("  struct products on the card vs float64 (rel to max |ref|): "
+        + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+    require(max(errs.values()) <= MEGA_TOL,
+            f"struct products within {MEGA_TOL:g} of float64: {errs}")
+    out["check_errs"] = errs
+
+    cfg = LP_CONFIG.replace(linsolve="woodbury")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, path = lp.solve_auto(prob, cfg.replace(rho_change_step=MEGA_RHO_STEP),
+                             max_iters=MEGA_CAP, ginv=ginv)
+    _, pobj, pinf = lp.select_solution(prob, lp.solution(st),
+                                       lp.solution_best(st))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    pobj, pinf = pobj.item(), int(pinf.item())
+    log(f"  plain struct solve: path {path}, {plain_s:.2f} s, it {st.it} "
+        f"({plain_s / max(st.it, 1) * 1e3:.3f} ms an iteration), done "
+        f"{bool(st.done.all())}, obj {pobj:.2f}, gap to the oracle "
+        f"{(pobj - oracle) / abs(oracle):+.4%}, infeasible rows {pinf}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(path == "windows-sparse", f"solve_auto's struct route: {path}")
+    require(pinf == 0 and np.isfinite(pobj), "plain struct: 0 infeasible")
+    out.update(plain_s=plain_s, plain_it=st.it, plain_obj=pobj,
+               plain_gap=(pobj - oracle) / abs(oracle), plain_path=path)
+    del st
+    split = struct_split(prob, cfg.replace(rho_change_step=MEGA_RHO_STEP),
+                         ginv, lp)
+    log("  a struct iteration: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items()))
+    out["plain_split"] = split
+
+    first = {}
+    score0 = l2f._scorer(model, pcfg, prob.device, 8192)
+
+    def score(rows):
+        first.setdefault("rows", rows)
+        return score0(rows)
+
+    fused_policy.LAUNCHES = 0
+    tm = {}
+    t0 = time.perf_counter()
+    res = l2f_struct.l2f_solve_struct(
+        prob, ginv, inst, row_maps[0], score, cfg,
+        policy_windows=MEGA_POLICY_WINDOWS, oracle_obj=oracle, timings=tm)
+    torch.cuda.synchronize()
+    l2f_s = time.perf_counter() - t0
+    k2 = fused_policy.LAUNCHES
+    log(f"  l2f_solve_struct: {l2f_s:.2f} s (policy {res['policy_s']:.2f}, "
+        f"compact {res['compact_s']:.2f}, tail {res['tail_s']:.2f}; "
+        f"{ {k: round(x, 3) for k, x in tm.items()} }), tail on core.lp "
+        f"windows, n {res['n_valid']} -> {res['n_red']} (reduced "
+        f"{res['red_shape']}), decided {res['decided']}, fixed "
+        f"{res['n_fixed']}, it {res['iterations']}, obj {res['obj']:.2f}, "
+        f"gap to the oracle {res['gap']:+.4%}, infeasible rows "
+        f"{res['infeasible']}, K2 launches {k2}")
+    require(k2 >= MEGA_POLICY_WINDOWS,
+            f"K2 scored every policy window: {k2} launches")
+    require(res["infeasible"] == 0, "struct l2f: 0 infeasible")
+    require(np.isfinite(res["obj"]) and res["gap"] <= MEGA_GAP,
+            f"struct l2f within {MEGA_GAP:.0%} of the oracle: "
+            f"{res['gap']:+.4%}")
+    out.update(l2f_s=l2f_s, l2f_timings=tm,
+               **{f"l2f_{k}": res[k] for k in (
+                   "policy_s", "compact_s", "tail_s", "n_red",
+                   "decided", "n_fixed", "iterations", "obj", "gap")})
+    return out, k2, first["rows"]
+
+
 def main():
     faulthandler.enable()
     faulthandler.dump_traceback_later(TOTAL_BUDGET_S, exit=True)
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -1257,6 +1597,16 @@ def main():
               "script runs only on a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    mega_inst = MegaInstance()
+    try:
+        return run(mega_inst)
+    finally:
+        mega_inst.close()
+
+
+def run(mega_inst):
+    import numpy as np
+    import torch
     from lpbox_admm_tpu_torch.adapters import ca
     from lpbox_admm_tpu_torch.config import LP_CONFIG, PolicyConfig
     from lpbox_admm_tpu_torch.core import lp
@@ -1404,6 +1754,12 @@ def main():
         n_frozen = k1_done_check(st, prob, cfg, fused_lp, compare)
         log(f"  K1 done-instance exit: {n_frozen} frozen instances")
     summary["k1_done_check_s"] = ph.seconds
+
+    # --- the dense-LP options; solve_auto's K1 launches from 0 -------------
+    with Phase("lp-options", 120) as ph:
+        summary["lp_options"], auto_k1 = lp_options_phase(prob, st, cfg, lp,
+                                                          fused_lp)
+    summary["lp_options_s"] = ph.seconds
 
     # --- training: the entry point and the compacting evaluation, counts
     # from 0 before each, read after each -----------------------------------
@@ -1586,15 +1942,31 @@ def main():
     summary["xl_l2f_check_s"] = ph.seconds
     del k2_in, tail_in
 
+    # --- the very-large rung: K2's counts from 0 before the struct l2f
+    # solve, read after it --------------------------------------------------
+    with Phase("mega", 360) as ph:
+        summary["mega"], mega_k2, mega_rows = mega_phase(
+            mega_inst, model, packed, pcfg, lp, fused_policy, l2f)
+        k2m_err = k2_check(fused_policy, packed, pop, mega_rows, pcfg, l2f)
+        summary["k2_mega_ms"] = cuda_ms(
+            lambda: fused_policy.policy_scores_cuda(
+                packed, mega_rows, fused_policy.stride_of(pcfg), pop), 2)
+        log(f"  K2 on the mega policy window's {mega_rows.shape[0]} rows: "
+            f"{summary['k2_mega_ms']:.3f} ms a launch")
+        del mega_rows
+    summary["mega_s"] = ph.seconds
+
     with Phase("timing", 120) as ph:
         kernels = timings(prob, cfg, pcfg, packed, pop, rows, lp, fused_lp,
                           fused_policy, launches, k1_res,
-                          max(k2_err, k2x_err))
+                          max(k2_err, k2x_err, k2m_err))
         if tail_k1 is not None:
             summary["xl_tail_k1"] = xl_tail_k1_timing(*tail_k1, fused_lp)
             kernels[0]["routes_xl_tail"] = summary["xl_tail_k1"]["routes"]
         kernels[0]["launches_train"] = train_launches["K1"]
         kernels[1]["launches_train"] = train_launches["K2"]
+        kernels[0]["launches_lp_options"] = auto_k1
+        kernels[1]["launches_mega"] = mega_k2
         kernels += xl_timings(k3_args, Gp, v4, s0x.ginv, fused_stream, symm,
                               {"K3": xl_launches["K3"],
                                "K4": sym_launches["K4"]}, k3_res, k4_res)

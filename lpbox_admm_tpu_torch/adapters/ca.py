@@ -25,8 +25,10 @@ import re
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from ..core.problem import Device, LpProblem, stack_lp_instances
+from ..core.problem import (Device, LpProblem, as_device, round_up,
+                            stack_lp_instances)
 
 
 def choose_next_item(bundle_mask: np.ndarray, interests: np.ndarray,
@@ -53,10 +55,14 @@ def generate_cauction(
     additivity: float = 0.2,
     budget_factor: float = 1.5,
     resale_factor: float = 0.5,
+    return_coo: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Sample one CA instance: ``(prices, C)`` with ``prices`` (n_bids,)
     and ``C`` the dense 0/1 item-bid incidence matrix of shape
-    (n_items + n_dummy, n_bids), empty rows dropped."""
+    (n_items + n_dummy, n_bids), empty rows dropped.  With
+    ``return_coo`` the incidence comes back as a ``(rows, cols, vals,
+    (m, n))`` triplet, never dense (the only form at the reference
+    table's 1e5-bid rungs, where a dense C is 7.9 GB in float32)."""
     values = min_value + (max_value - min_value) * rng.rand(n_items)
     compats = np.triu(rng.rand(n_items, n_items), k=1)
     compats = compats + compats.T
@@ -125,6 +131,19 @@ def generate_cauction(
             bids.append((list(bundle_fs) + dummy, price_v))
 
     prices = np.array([p for _, p in bids])
+    if return_coo:
+        rows_l, cols_l = [], []
+        for j, (bundle, _) in enumerate(bids):
+            rows_l.extend(bundle)
+            cols_l.extend([j] * len(bundle))
+        rows = np.asarray(rows_l, np.int64)
+        cols = np.asarray(cols_l, np.int64)
+        # drop empty item rows, keeping row order (as the dense form does)
+        used = np.unique(rows)
+        remap = np.full(n_items + n_dummy, -1, np.int64)
+        remap[used] = np.arange(len(used))
+        return prices, (remap[rows], cols, np.ones(len(rows), np.float32),
+                        (len(used), len(bids)))
     C = np.zeros((n_items + n_dummy, len(bids)))
     for j, (bundle, _) in enumerate(bids):
         for item in bundle:
@@ -147,6 +166,116 @@ def make_problem(
     return stack_lp_instances(bs, Es, n_pad=n_pad, m_pad=m_pad,
                               device=device)
 
+
+
+def _inst_coo(C) -> Tuple[Tuple[np.ndarray, np.ndarray, np.ndarray],
+                          Tuple[int, int]]:
+    """``((rows, cols, vals), (m, n))`` of a dense C or a COO triplet."""
+    if isinstance(C, tuple):
+        rows, cols, vals, shape = C
+        return (np.asarray(rows, np.int64), np.asarray(cols, np.int64),
+                np.asarray(vals, np.float32)), tuple(int(d) for d in shape)
+    C = np.asarray(C)
+    rows, cols = np.nonzero(C)
+    return (rows, cols, C[rows, cols].astype(np.float32)), C.shape
+
+
+def _sides(instances, n_pad, m, align, rows):
+    """b (minimization form), row and variable masks of a batch; ``rows``
+    per instance: the positions of its constraint rows on the m axis."""
+    bs = [-np.asarray(p, dtype=np.float64) for p, _ in instances]
+    ns = [b.shape[0] for b in bs]
+    n = n_pad or round_up(max(ns), align)
+    B = len(instances)
+    b_arr = np.zeros((B, n), np.float32)
+    rmask = np.zeros((B, m), bool)
+    vmask = np.zeros((B, n), bool)
+    for i, bi in enumerate(bs):
+        b_arr[i, :ns[i]] = bi
+        vmask[i, :ns[i]] = True
+        rmask[i, rows[i]] = True
+    return b_arr, rmask, vmask
+
+
+def _problem(E, b_arr, rmask, vmask, dev) -> LpProblem:
+    t = lambda a: torch.from_numpy(a).to(dev)
+    return LpProblem(b=t(b_arr), E=E,
+                     f=torch.ones(rmask.shape, dtype=torch.float32,
+                                  device=dev),
+                     row_mask=t(rmask), var_mask=t(vmask))
+
+
+def make_sparse_problem(
+    instances: Sequence[Tuple[np.ndarray, np.ndarray]],
+    n_pad: Optional[int] = None,
+    m_pad: Optional[int] = None,
+    align: int = 128,
+    device: Device = "cuda",
+) -> LpProblem:
+    """Batch CA instances (dense C or COO triplets) with E stored as an
+    ``ops.sparse.SparseEll`` (O(nnz)): the very-large rungs of the
+    reference's instance ladder (cython_solver/LPboxADMMsolver.cpp:
+    2461-2486) are about 5 nonzeros a column.  The padding contract of
+    ``make_problem``."""
+    from ..ops import sparse as sparse_ops
+    dev = as_device(device)
+    packed = [_inst_coo(C) for _, C in instances]
+    m = m_pad or round_up(max(s[0] for _, s in packed), align)
+    b_arr, rmask, vmask = _sides(instances, n_pad, m, align,
+                                 [np.arange(s[0]) for _, s in packed])
+    E = sparse_ops.from_coo([c for c, _ in packed], (m, b_arr.shape[1]),
+                            device=dev)
+    return _problem(E, b_arr, rmask, vmask, dev)
+
+
+def make_struct_problem(
+    instances: Sequence[Tuple[np.ndarray, np.ndarray]],
+    n_pad: Optional[int] = None,
+    align: int = 128,
+    width_cap: int = 12,
+    device: Device = "cuda",
+) -> Tuple[LpProblem, list]:
+    """Batch CA instances with E as the structure-aware
+    ``ops.ca_sparse.CaStructE``: item rows as a width-capped ELL block,
+    dummy (XOR) rows as their own block of column intervals
+    (generate_instances.py:294-303 adds them).  Returns ``(problem,
+    row_maps)``: the struct m-axis is ``[item rows | dummy rows]`` per
+    instance (each block padded) and ``row_maps[i]`` maps original row
+    -> struct row; embed any host-built Gram or inverse through it."""
+    from ..ops import ca_sparse
+    dev = as_device(device)
+    packed = [_inst_coo(C) for _, C in instances]
+    n = n_pad or round_up(max(len(p) for p, _ in instances), align)
+    E, row_maps = ca_sparse.build([c for c, _ in packed],
+                                  [s for _, s in packed], n,
+                                  width_cap=width_cap, align=align,
+                                  device=dev)
+    b_arr, rmask, vmask = _sides(instances, n, E.m, align, row_maps)
+    return _problem(E, b_arr, rmask, vmask, dev), row_maps
+
+
+def make_dense_bf16_problem(
+    instances: Sequence[Tuple[np.ndarray, np.ndarray]],
+    n_pad: Optional[int] = None,
+    m_pad: Optional[int] = None,
+    align: int = 128,
+    device: Device = "cuda",
+) -> LpProblem:
+    """Dense E built on the device from COO triplets, stored bfloat16
+    (exact for the 0/1 CA entries): ``core.lp`` contracts it with the
+    three-limb vector split (f32-equivalent) and factors its Gram in
+    float32, and no float32 (B, m, n) copy exists on the host."""
+    dev = as_device(device)
+    packed = [_inst_coo(C) for _, C in instances]
+    m = m_pad or round_up(max(s[0] for _, s in packed), align)
+    b_arr, rmask, vmask = _sides(instances, n_pad, m, align,
+                                 [np.arange(s[0]) for _, s in packed])
+    E = torch.zeros((len(instances), m, b_arr.shape[1]),
+                    dtype=torch.bfloat16, device=dev)
+    for i, ((rows, cols, vals), _) in enumerate(packed):
+        E[i, torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)] \
+            = torch.from_numpy(vals).to(device=dev, dtype=torch.bfloat16)
+    return _problem(E, b_arr, rmask, vmask, dev)
 
 
 def write_instance(path_prefix: str, prices: np.ndarray, C: np.ndarray):

@@ -1,20 +1,29 @@
 """Batched Lp-Box ADMM for binary LPs (combinatorial auctions et al.).
 
-The port of the JAX package's ``core/lp.py`` on dense E, with both of
-its x-updates: the exact Woodbury solve (``linsolve="woodbury"``) and
-Jacobi-preconditioned CG (``linsolve="cg"``, ``ops/cg.py``)
+The port of the JAX package's ``core/lp.py``, with both of its
+x-updates: the exact Woodbury solve (``linsolve="woodbury"``) and
+Jacobi-preconditioned CG (``linsolve="cg"``, ``ops/cg.py``), on E dense
+in float32 or bfloat16 (three-limb products, ``_mv``), sparse
+(``ops.sparse.SparseEll``) or structured (``ops.ca_sparse.CaStructE``),
+and G^{-1} dense in float32 or bfloat16 (``cfg.ginv_dtype``) or
+Schur-structured (``ops.struct_ginv.StructGinv``)
 (reference LinerProgramming/LinearProgramming/cython_solver/
 LPboxADMMsolver.cpp):
 
 * ``init_state``        ~ ADMM_lp_iters_init        (:489-763)
 * ``step``              ~ one iteration of ADMM_lp_iters (:796-1068)
 * ``solve_window``      ~ an ADMM_lp_iters_l2f window with trajectory capture
-* ``solve``             ~ ADMM_lp_iters(0, max_iters) (:766), window-quantized
+* ``solve``             ~ ADMM_lp_iters(0, max_iters) (:766), window-quantized;
+                          with ``rule_fixing``, ADMM_lp_iters_fix (:1689)
 * ``solve_blocked``     ~ the same per block of instances, each block
                           dropped once done (host round-robin; the
                           large CA rungs' single-stream sweep with
                           ``stream=True``)
+* ``solve_auto``        ~ the plain solve through the route measured best
+                          on the card for the problem's shape
 * ``apply_fix``         ~ the early-fix problem reduction (:1124-1335)
+* ``rule_fix_vec``      ~ the rule-based fixing counters of ADMM_lp_iters_fix
+                          (:1856-1950)
 * ``solution`` / ``objective`` / ``infeasible_rows``
                         ~ get_x_sol (:1648), cal_obj (:1630), check_infeasible_l2f (:1593)
 
@@ -30,11 +39,14 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import SolverConfig
 from ..ops import cg as cg_ops
+from ..ops import sparse as sparse_ops
 from ..ops import woodbury
+from ..ops.mxu_sparse import _limbs3
 from ..ops.projections import (project_box, project_nonneg,
                                project_shifted_lp_ball)
 from ..ops.schedule import gamma_at, rho_at
@@ -69,11 +81,14 @@ class LpState:
     cur_obj: torch.Tensor      # (B,) binary objective of the current rounding
     best_bin_obj: torch.Tensor # (B,)
     best_sol: torch.Tensor     # (B, n)
+    # Rule-based fixing counters
     x_prev: torch.Tensor       # (B, n)
+    fix_count: torch.Tensor    # (B, n) int32 consistency counters
     # E @ (free * x), carried so the y3 update reuses the last product
     ex: torch.Tensor           # (B, m)
-    ginv: torch.Tensor         # (B, m, m) Woodbury G^{-1}; (B, 1, 1)
-                               # zeros under linsolve="cg"
+    ginv: object               # (B, m, m) Woodbury G^{-1} (float32 or
+                               # bfloat16, cfg.ginv_dtype), a StructGinv,
+                               # or (B, 1, 1) zeros under linsolve="cg"
     # E^T w for the next iteration's rhs, w = rho4 (f_eff - y3) - z4;
     # refresh_et_next after any out-of-step change of f_eff/ex/z4/it
     et_next: torch.Tensor      # (B, n)
@@ -96,37 +111,118 @@ def _wb_ratio(cfg: SolverConfig) -> float:
     return 2.0
 
 
-def _factor_ratio(cfg: SolverConfig) -> float:
-    """``_wb_ratio`` at a place that factors G.  The port stores G^{-1}
-    in float32 only; the JAX package's bfloat16 storage option
-    (``ginv_dtype``) is not ported, so it is refused rather than
-    ignored."""
-    if cfg.ginv_dtype != "float32":
-        raise ValueError(
-            f"ginv_dtype={cfg.ginv_dtype!r}: the port stores G^-1 in "
-            "float32 only (bfloat16 storage is not ported)")
-    return _wb_ratio(cfg)
-
-
 def _check_linsolve(cfg: SolverConfig) -> None:
     if cfg.linsolve not in ("cg", "woodbury"):
         raise ValueError(f"unknown linsolve {cfg.linsolve!r}; "
                          "expected 'cg' or 'woodbury'")
 
 
-def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Per-instance M @ v: (B, I, J) x (B, J) -> (B, I), float32."""
+def _is_struct_ginv(ginv) -> bool:
+    return getattr(ginv, "is_struct_ginv", False)
+
+
+def _ginv_store(ginv, cfg: SolverConfig):
+    """The stored copy of a freshly factored G^{-1}: the factorization is
+    always float32, the copy the iteration reads is bfloat16 under
+    ``cfg.ginv_dtype="bfloat16"`` (the JAX package's large-rung option;
+    products with it go through ``_mv``'s three limbs).  A StructGinv
+    passes through."""
+    if cfg.ginv_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"ginv_dtype {cfg.ginv_dtype!r}: expected "
+                         "'float32' or 'bfloat16'")
+    if _is_struct_ginv(ginv) or cfg.ginv_dtype == "float32":
+        return ginv
+    return ginv.to(torch.bfloat16)
+
+
+def _E32(E):
+    """E for the Gram factorization: sparse and bfloat16 E pass through
+    (bfloat16 storage asserts bf16-exact entries, and
+    ``woodbury.factorize`` sums in float32), float32 otherwise."""
+    if sparse_ops.is_sparse(E) or E.dtype == torch.bfloat16:
+        return E
+    return E.float()
+
+
+def _bf16_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b batched, bfloat16 operands, float32 products and sums and a
+    float32 result: no bfloat16 rounding of the output (a plain bf16
+    ``torch.bmm`` returns bfloat16).  On the card cuBLAS's bf16 GEMM with
+    an f32 output (``out_dtype``); on the CPU the same values in f32."""
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _mv_many(M, V: torch.Tensor) -> torch.Tensor:
+    """Per-instance M @ v for a stack: (B, I, J) x (B, k, J) -> (B, k, I),
+    float32.  ``M``: dense float32 or bfloat16 (``V`` then in three
+    bfloat16 limbs contracted in one product, f32-equivalent), or
+    sparse (``ops/sparse``: gathers)."""
+    if sparse_ops.is_sparse(M):
+        return sparse_ops.mv_many(M, V)
+    if M.dtype == torch.bfloat16:
+        B, k, J = V.shape
+        L = _limbs3(V).permute(0, 2, 1, 3).reshape(B, J, 3 * k)
+        r = _bf16_bmm(M, L).view(B, M.shape[1], k, 3)
+        return (r[..., 0] + r[..., 1] + r[..., 2]).transpose(1, 2)
+    return torch.bmm(M.float(), V.transpose(1, 2).contiguous()).transpose(1, 2)
+
+
+def _mtv_many(M, W: torch.Tensor) -> torch.Tensor:
+    """Per-instance M^T @ w for a stack: (B, I, J) x (B, k, I) -> (B, k, J),
+    float32 (the same three cases as ``_mv_many``)."""
+    if sparse_ops.is_sparse(M):
+        return sparse_ops.mtv_many(M, W)
+    if M.dtype == torch.bfloat16:
+        B, k, I = W.shape
+        L = _limbs3(W).permute(0, 1, 3, 2).reshape(B, 3 * k, I)
+        r = _bf16_bmm(L, M).view(B, k, 3, M.shape[2])
+        return r[:, :, 0] + r[:, :, 1] + r[:, :, 2]
+    return torch.bmm(W, M.float())
+
+
+def _mv(M, v: torch.Tensor) -> torch.Tensor:
+    """Per-instance M @ v: (B, I, J) x (B, J) -> (B, I), float32, M as
+    stored (the JAX package's ``_emv("bmn,bn->bm")``): float32 E or
+    G^{-1} exactly, bfloat16 in three limbs of v with float32 products
+    and sums (one limb's 4e-3 rounding enters the dual ascent scaled by
+    rho and diverges at high rho), sparse E by gathers."""
+    if sparse_ops.is_sparse(M) or M.dtype == torch.bfloat16:
+        return _mv_many(M, v[:, None])[:, 0]
     return torch.bmm(M.float(), v[..., None])[..., 0]
 
 
-def _mtv(M: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _mtv(M, w: torch.Tensor) -> torch.Tensor:
     """Per-instance M^T @ w: (B, I, J) x (B, I) -> (B, J), float32."""
-    return torch.bmm(w[:, None, :], M.float())[:, 0]
+    return _mtv_many(M, w[:, None])[:, 0]
 
 
-def _esq_diag(E: torch.Tensor, free_f: torch.Tensor) -> torch.Tensor:
+def _ginv_apply(ginv, r: torch.Tensor) -> torch.Tensor:
+    """``G^{-1} r`` for either representation: dense (float32, or
+    bfloat16 through the limbs) or the Schur block elimination."""
+    if _is_struct_ginv(ginv):
+        return ginv.apply(r)
+    return _mv(ginv, r)
+
+
+def _esq_diag(E, free_f: torch.Tensor) -> torch.Tensor:
     """diag(E_f^T E_f): squared column norms over the free columns."""
+    if sparse_ops.is_sparse(E):
+        return sparse_ops.colsq(E) * free_f
     return (E.float() * E.float()).sum(1) * free_f
+
+
+def _mv_problem(prob: LpProblem, cfg: SolverConfig) -> LpProblem:
+    """The problem as the solve loop reads it: dense E cast to bfloat16
+    once under ``matvec_dtype="bfloat16"``; sparse E as stored."""
+    if cfg.matvec_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"matvec_dtype {cfg.matvec_dtype!r}")
+    if sparse_ops.is_sparse(prob.E):
+        return prob
+    if cfg.matvec_dtype == "bfloat16" and prob.E.dtype != torch.bfloat16:
+        return prob.replace(E=prob.E.to(torch.bfloat16))
+    return prob
 
 
 def _w_vec(f_eff, ex, z4, rho4):
@@ -140,18 +236,19 @@ def refresh_et_next(state: LpState, prob: LpProblem,
     """Recompute the carried E^T w product for the state's current
     (f_eff, ex, z4, it)."""
     w = _w_vec(state.f_eff, state.ex, state.z4, rho_at(state.it, cfg))
-    return state.replace(et_next=_mtv(prob.E, w))
+    return state.replace(et_next=_mtv(_mv_problem(prob, cfg).E, w))
 
 
 def init_state(prob: LpProblem, cfg: SolverConfig,
                gram: Optional[torch.Tensor] = None,
-               ginv: Optional[torch.Tensor] = None) -> LpState:
+               ginv=None) -> LpState:
     """Initial state: x=1, z=0, y3 = f - E x (reference :550-727).
 
     ``gram``: optional precomputed (B, m, m) unshifted Gram ``E E^T``
     (all columns free) for the Woodbury factorization; ``ginv``: an
-    optional fully precomputed (B, m, m) inverse of ``ratio I + E E^T``
-    (stored float32)."""
+    optional fully precomputed inverse of ``ratio I + E E^T``, dense
+    (B, m, m) or a ``StructGinv`` (the struct problems' Schur form, built
+    on the host by ``ops.struct_ginv.build_struct_ginv``)."""
     B, n, m = prob.batch, prob.n, prob.m
     dt, dev = prob.b.dtype, prob.device
     free = prob.var_mask
@@ -167,13 +264,15 @@ def init_state(prob: LpProblem, cfg: SolverConfig,
     _check_linsolve(cfg)
     if cfg.linsolve == "cg":
         ginv = torch.zeros((B, 1, 1), dtype=dt, device=dev)
-    elif ginv is not None:
-        _factor_ratio(cfg)
-        ginv = ginv.float()
-    elif gram is not None:
-        ginv = woodbury.factorize_from_gram(gram, _factor_ratio(cfg)).ginv
     else:
-        ginv = woodbury.factorize(prob.E, free, _factor_ratio(cfg)).ginv
+        ratio = _wb_ratio(cfg)
+        if ginv is not None:
+            ginv = ginv if _is_struct_ginv(ginv) else ginv.float()
+        elif gram is not None:
+            ginv = woodbury.factorize_from_gram(gram, ratio).ginv
+        else:
+            ginv = woodbury.factorize(_E32(prob.E), free, ratio).ginv
+        ginv = _ginv_store(ginv, cfg)
     return LpState(
         x=x, y1=x, y2=x, y3=y3, z1=zeros_n, z2=zeros_n, z4=z4,
         free=free, fixed_val=torch.zeros((B, n), dtype=dt, device=dev),
@@ -184,21 +283,22 @@ def init_state(prob: LpProblem, cfg: SolverConfig,
         cg_fail=torch.zeros((B,), dtype=torch.bool, device=dev),
         cur_obj=cur_obj, best_bin_obj=best0, best_sol=x,
         x_prev=torch.zeros((B, n), dtype=dt, device=dev),
+        fix_count=torch.zeros((B, n), dtype=torch.int32, device=dev),
         ex=ex, ginv=ginv,
         et_next=_mtv(prob.E, _w_vec(prob.f, ex, z4, rho_at(0, cfg))))
 
 
 def step(state: LpState, prob: LpProblem, cfg: SolverConfig,
-         skip_cvg_at: Optional[int] = None) -> LpState:
+         skip_cvg_at: Optional[int] = None,
+         rule_fixing: bool = False) -> LpState:
     """One ADMM iteration over the whole batch (reference :796-1068):
     the x-update by Woodbury with the PCG warm-start keep test, or by
     Jacobi PCG (``cfg.linsolve``).
 
     ``skip_cvg_at``: global iteration at which the y1/y2 stop is not
-    checked (the plain solver skips its first iteration)."""
-    if cfg.matvec_dtype != "float32":
-        raise ValueError("core.lp.step contracts E in float32 only; "
-                         "bfloat16 storage is a fused-kernel option")
+    checked (the plain solver skips its first iteration).
+    ``rule_fixing`` also updates the |x - x_prev| consistency counters of
+    ADMM_lp_iters_fix (:1856-1871); the caller turns them into fixes."""
     _check_linsolve(cfg)
     dt = state.x.dtype
     it = state.it
@@ -224,10 +324,9 @@ def step(state: LpState, prob: LpProblem, cfg: SolverConfig,
     failed = None                         # (B,) bool, CG only
     if cfg.linsolve == "woodbury":
         ratio = _wb_ratio(cfg)
-        fw = torch.bmm(prob.E.float(),
-                       torch.stack([rhs, x0], dim=2))       # (B, m, 2)
-        Erhs, Ex0 = fw[..., 0], fw[..., 1]
-        u = _mv(state.ginv, Erhs)
+        fw = _mv_many(prob.E, torch.stack([rhs, x0], dim=1))   # (B, 2, m)
+        Erhs, Ex0 = fw[:, 0], fw[:, 1]
+        u = _ginv_apply(state.ginv, Erhs)
         # E_f E_f^T u = (G - ratio I) u, so E x_exact = ratio u / c
         Ex_exact = (ratio / c) * u
         rho4n = rho_at(it + 1, cfg)
@@ -235,8 +334,8 @@ def step(state: LpState, prob: LpProblem, cfg: SolverConfig,
         z4_exact = state.z4 + gamma * rho4 * (Ex_exact + y3 - state.f_eff)
         w_keep = _w_vec(state.f_eff, Ex0, z4_keep, rho4n)
         w_exact = _w_vec(state.f_eff, Ex_exact, z4_exact, rho4n)
-        tv = torch.bmm(torch.stack([u, Ex0, w_keep, w_exact], dim=1),
-                       prob.E.float())                     # (B, 4, n)
+        tv = _mtv_many(prob.E, torch.stack([u, Ex0, w_keep, w_exact],
+                                           dim=1))         # (B, 4, n)
         EtU, EtEx0, et_keep, et_exact = (tv[:, 0], tv[:, 1], tv[:, 2],
                                          tv[:, 3])
         x_exact = free_f * (rhs - EtU) / c
@@ -314,6 +413,15 @@ def step(state: LpState, prob: LpProblem, cfg: SolverConfig,
     best_bin_obj = torch.where(better, obj_bin, state.best_bin_obj)
     best_sol = torch.where(better[:, None], x, state.best_sol)
 
+    # --- rule-based fixing counters (:1856-1871) -------------------------
+    fix_count = state.fix_count
+    if rule_fixing:
+        live = act_n & state.free
+        det = (x - state.x_prev).abs() <= cfg.fix_threshold
+        fix_count = torch.where(live & det, fix_count + 1,
+                                torch.where(live, torch.zeros_like(fix_count),
+                                            fix_count))
+
     upd = lambda new, old: torch.where(act_n, new, old)
     return state.replace(
         x=upd(x, state.x), y1=upd(y1, state.y1), y2=upd(y2, state.y2),
@@ -324,44 +432,69 @@ def step(state: LpState, prob: LpProblem, cfg: SolverConfig,
         done=state.done | newly_done,
         cg_fail=state.cg_fail if failed is None else state.cg_fail | failed,
         cur_obj=cur_obj, best_bin_obj=best_bin_obj, best_sol=best_sol,
-        x_prev=upd(x, state.x_prev))
+        x_prev=upd(x, state.x_prev), fix_count=fix_count)
 
 
 def solve_window(state: LpState, prob: LpProblem, cfg: SolverConfig,
                  window: int, record: bool = True,
-                 skip_cvg_at: Optional[int] = None
+                 skip_cvg_at: Optional[int] = None,
+                 rule_fixing: bool = False
                  ) -> Tuple[LpState, Optional[torch.Tensor]]:
     """Run ``window`` iterations, optionally capturing the (B, n, window)
     x trajectory (reference x_iters, :1472-1475)."""
+    prob = _mv_problem(prob, cfg)
     traj = []
     for _ in range(window):
-        state = step(state, prob, cfg, skip_cvg_at=skip_cvg_at)
+        state = step(state, prob, cfg, skip_cvg_at=skip_cvg_at,
+                     rule_fixing=rule_fixing)
         if record:
             traj.append(state.x)
     return state, (torch.stack(traj, dim=-1) if record else None)
 
 
 def solve(prob: LpProblem, cfg: SolverConfig,
-          max_iters: Optional[int] = None, window: int = 100) -> LpState:
-    """Plain full solve: windows of ``window`` iterations until every
-    instance is done or ``max_iters`` is reached (one host check per
-    window; the first iteration's y1/y2 stop is skipped, as in the
-    reference's ADMM_lp_iters(0, max_iters), :766)."""
+          max_iters: Optional[int] = None, window: int = 100,
+          rule_fixing: bool = False, ginv=None) -> LpState:
+    """Plain (or rule-fixing) full solve: windows of ``window`` iterations
+    until every instance is done or ``max_iters`` is reached (one host
+    check per window; the first iteration's y1/y2 stop is skipped, as in
+    the reference's ADMM_lp_iters(0, max_iters), :766).  With
+    ``rule_fixing``, each window ends with ``apply_fix`` of the
+    consistency counters' decisions (ADMM_lp_iters_fix, :1689).
+    ``ginv``: a precomputed inverse for ``init_state``."""
     if max_iters is None:
         max_iters = cfg.max_iters
-    state = init_state(prob, cfg)
+    state = init_state(prob, cfg, ginv=ginv)
+    wprob = _mv_problem(prob, cfg)          # E cast once, not per window
     while state.it < max_iters and not bool(state.done.all()):
-        state, _ = solve_window(state, prob, cfg, window, record=False,
-                                skip_cvg_at=0)
+        state, _ = solve_window(state, wprob, cfg, window, record=False,
+                                skip_cvg_at=0, rule_fixing=rule_fixing)
+        if rule_fixing:
+            state = apply_fix(state, prob, rule_fix_vec(state, cfg), cfg)
     return state
+
+
+def _rows(v, lo: int, hi: int):
+    """Instances [lo, hi) of a batched tensor or structured operand."""
+    if isinstance(v, torch.Tensor):
+        return v[lo:hi]
+    return v.map(lambda t: t[lo:hi])
+
+
+def _cat(vals: list):
+    """Concatenate batched tensors, or structured operands field by field."""
+    v0 = vals[0]
+    if isinstance(v0, torch.Tensor):
+        return torch.cat(vals)
+    return type(v0)(*(_cat([getattr(v, f.name) for v in vals])
+                      for f in dataclasses.fields(v0)))
 
 
 def solve_blocked(prob: LpProblem, cfg: SolverConfig, block: int = 8,
                   max_iters: Optional[int] = None, window: int = 500,
                   stream: bool = False,
                   gram: Optional[torch.Tensor] = None,
-                  ginv: Optional[torch.Tensor] = None
-                  ) -> Tuple[LpState, list]:
+                  ginv=None) -> Tuple[LpState, list]:
     """Host-driven blocked solve with per-block early exit.
 
     The batch is split into blocks of ``block`` instances that run
@@ -369,9 +502,10 @@ def solve_blocked(prob: LpProblem, cfg: SolverConfig, block: int = 8,
     done or it reaches ``max_iters``, so finished blocks stop paying for
     stragglers elsewhere.  ``stream=True`` runs each window through the
     single-stream sweep (``ops.fused_stream.lp_window_stream``, K3), the
-    large CA rungs' path; otherwise ``solve_window``.  With
-    ``matvec_dtype="bfloat16"`` the sweep's E is cast to bfloat16 once
-    per solve.  Block slices are views of the batch (no copy of E).
+    large CA rungs' path on dense E; otherwise ``solve_window``.  With
+    ``matvec_dtype="bfloat16"`` dense E is cast to bfloat16 once per
+    solve.  Block slices are views of the batch (no copy of E); sparse E
+    and a ``StructGinv`` are sliced field by field.
 
     Returns the merged state (``it`` = the largest over blocks) and the
     per-block iteration counts.
@@ -383,15 +517,20 @@ def solve_blocked(prob: LpProblem, cfg: SolverConfig, block: int = 8,
         raise ValueError(f"batch {B} is not a multiple of block {block}")
     E_op = None
     if stream:
+        if sparse_ops.is_sparse(prob.E):
+            raise ValueError("stream=True sweeps a dense E; sparse E runs "
+                             "core.lp windows")
         from ..ops import fused_stream
         E_op = fused_stream.stream_operand(prob.E, cfg)
     los = range(0, B, block)
     fields = [f.name for f in dataclasses.fields(LpProblem)]
-    probs = [prob.replace(**{f: getattr(prob, f)[lo:lo + block]
-                             for f in fields}) for lo in los]
-    cut = lambda t, lo: None if t is None else t[lo:lo + block]
+    cut = lambda t, lo: None if t is None else _rows(t, lo, lo + block)
+    sliced = lambda p: [p.replace(**{f: cut(getattr(p, f), lo)
+                                     for f in fields}) for lo in los]
     states = [init_state(p, cfg, gram=cut(gram, lo), ginv=cut(ginv, lo))
-              for p, lo in zip(probs, los)]
+              for p, lo in zip(sliced(prob), los)]
+    # the windows' view: E cast once per solve (the sweep reads E_op)
+    probs = sliced(prob if stream else _mv_problem(prob, cfg))
     iters = [0] * len(probs)
     live = set(range(len(probs)))
     first = True
@@ -411,18 +550,65 @@ def solve_blocked(prob: LpProblem, cfg: SolverConfig, block: int = 8,
             if states[k].it >= max_iters or bool(states[k].done.all()):
                 live.discard(k)
     merged = {f: (max(iters) if f == "it" else
-                  torch.cat([getattr(s, f) for s in states]))
+                  _cat([getattr(s, f) for s in states]))
               for f in LpState.__dataclass_fields__}
     return LpState(**merged), iters
 
 
+def solve_auto(prob: LpProblem, cfg: SolverConfig,
+               max_iters: Optional[int] = None,
+               ginv=None) -> Tuple[LpState, str]:
+    """Plain solve through the route measured best on the card for the
+    problem; returns ``(state, path)``, ``path`` naming the route:
+
+    - ``"k1"``: the fused window (``ops.fused_lp.solve_fused``) where K1
+      holds one instance (``fused_lp.fits``), the x-update is Woodbury's
+      and no inverse is given; a CUDA problem only, as K1 is a card
+      kernel;
+    - ``"windows"``: ``core.lp`` windows on the whole batch (``solve``);
+    - ``"windows-sparse"``: the same on sparse or structured E (the
+      very-large rungs), ``ginv`` (a ``StructGinv`` there) passed to
+      ``init_state``.
+
+    The rule is the card's, measured end to end at two shapes
+    (``scripts/auto_rule.py --end-to-end``, PERF.md §5, an H100 80GB HBM3
+    at 700 W): at CA-500 x 128, K1 0.64 s against 32.9 s on ``core.lp``
+    windows; at the xl rung x 32, where K1 does not fit, ``core.lp``
+    windows over the whole batch 20.0-21.4 s against 61.9 s on the K3
+    stream in blocks of 8 (every block ran to the 9000-iteration cap, so
+    per-block early exit saved nothing).  Other dense shapes follow by
+    extrapolation, not measurement: a ``core.lp`` iteration is bound by
+    its host launches (about 2 ms), which blocks pay once a block.  The
+    JAX package's rule (its lp.py:786-851) is the TPU's VMEM budget and
+    its gather cost (ROADMAP C)."""
+    if max_iters is None:
+        max_iters = cfg.max_iters
+    if sparse_ops.is_sparse(prob.E):
+        return solve(prob, cfg, max_iters=max_iters, ginv=ginv), \
+            "windows-sparse"
+    from ..ops import fused_lp
+    if prob.device.type == "cuda" and ginv is None \
+            and cfg.linsolve == "woodbury" and cfg.rho_upper_limit is None \
+            and fused_lp.fits(prob.m, prob.n):
+        st = fused_lp.solve_fused(prob, cfg, max_iters=max_iters, window=100)
+        return st, "k1"
+    return solve(prob, cfg, max_iters=max_iters, ginv=ginv), "windows"
+
+
 def apply_fix(state: LpState, prob: LpProblem, vec: torch.Tensor,
-              cfg: SolverConfig, min_fix: Optional[int] = None) -> LpState:
+              cfg: SolverConfig, min_fix: Optional[int] = None,
+              ginv=None) -> LpState:
     """Fix variables per decision vector ``vec`` (B, n): +1 fix to 1,
     0 fix to 0, -1 leave free.  Per instance, a round that would fix
     ``min_fix`` or fewer variables is skipped.  The reduced problem is
     reproduced by masking products to the free columns and
-    ``f_eff = f - E ((1 - free) * fixed_val)``."""
+    ``f_eff = f - E ((1 - free) * fixed_val)``.
+
+    ``ginv``: a caller-refactorized inverse for the post-fix free mask,
+    dense (B, m, m) or a ``StructGinv``, merged per instance by the skip
+    decision; required where the state's G^{-1} is a StructGinv (the
+    host mirrors the decision with ``fix_decision_host`` and rebuilds
+    with ``ops.struct_ginv.build_struct_ginv(free=...)``)."""
     if min_fix is None:
         min_fix = cfg.min_fix
     dt = state.x.dtype
@@ -446,16 +632,55 @@ def apply_fix(state: LpState, prob: LpProblem, vec: torch.Tensor,
     done = state.done | (do & (empty | (x_free_norm < 1e-3)))
 
     ex = torch.where(do[:, None], _mv(prob.E, free_f * state.x), state.ex)
-    ginv = state.ginv
-    if cfg.linsolve == "woodbury":
-        factor = woodbury.factorize(prob.E, free, _factor_ratio(cfg))
-        ginv = torch.where(do[:, None, None], factor.ginv, state.ginv)
+    if ginv is not None:
+        ginv = ginv.where(do, state.ginv) if _is_struct_ginv(ginv) \
+            else torch.where(do[:, None, None], ginv, state.ginv)
+    elif cfg.linsolve == "woodbury":
+        if _is_struct_ginv(state.ginv):
+            raise NotImplementedError(
+                "early fixing with a Schur-structured G^-1 needs a "
+                "caller-refactorized inverse: mirror the decision on the "
+                "host (fix_decision_host), rebuild with ops.struct_ginv."
+                "build_struct_ginv(free=...), and pass it as "
+                "apply_fix(..., ginv=new_ginv)")
+        factor = woodbury.factorize(_E32(prob.E), free, _wb_ratio(cfg))
+        ginv = torch.where(do[:, None, None], _ginv_store(factor.ginv, cfg),
+                           state.ginv)
+    else:
+        ginv = state.ginv
     ns = state.replace(
         free=free, fixed_val=fixed_val, f_eff=f_eff,
         sum_fix_obj=sum_fix_obj, done=done,
         x_prev=torch.where(do[:, None], state.x, state.x_prev),
         ex=ex, ginv=ginv)
     return refresh_et_next(ns, prob, cfg)
+
+
+def fix_decision_host(state: LpState, vec, cfg: SolverConfig,
+                      min_fix: Optional[int] = None):
+    """Host mirror of ``apply_fix``'s decision: numpy ``(do, new_free)``,
+    the instances that fix this round and the post-fix free mask, which
+    a host refactorization (``build_struct_ginv(free=...)``) needs before
+    ``apply_fix(..., ginv=...)``."""
+    if min_fix is None:
+        min_fix = cfg.min_fix
+    as_np = lambda t: t.detach().cpu().numpy() \
+        if isinstance(t, torch.Tensor) else np.asarray(t)
+    free = as_np(state.free)
+    done = as_np(state.done)
+    want = free & (as_np(vec) >= 0.0) & ~done[:, None]
+    do = want.sum(-1) > min_fix
+    return do, free & ~(want & do[:, None])
+
+
+def rule_fix_vec(state: LpState, cfg: SolverConfig) -> torch.Tensor:
+    """Decision vector from the consistency counters (ADMM_lp_iters_fix):
+    variables whose iterate moved at most ``fix_threshold`` for
+    ``consistency`` consecutive iterations are fixed to round(x)
+    (:1861-1870, :2012); +1/0/-1 as ``apply_fix`` takes it."""
+    flag = state.free & (state.fix_count >= cfg.consistency)
+    val = (state.x >= 0.5).to(state.x.dtype)
+    return torch.where(flag, val, torch.full_like(val, -1.0))
 
 
 def solution(state: LpState) -> torch.Tensor:
@@ -503,7 +728,11 @@ def compact(state: LpState, prob: LpProblem, cfg: SolverConfig,
     first, in order, then fixed ones as padding) and optionally to the
     ``m_new`` rows that still have free support.  Returns
     ``(state', prob', orig_idx)``, ``orig_idx`` (B, n_new) mapping the
-    compacted columns to original ones (``scatter_solution``)."""
+    compacted columns to original ones (``scatter_solution``).  Dense E
+    only: sparse problems iterate mask-based."""
+    if sparse_ops.is_sparse(prob.E):
+        raise ValueError("compact requires a dense E (column gather); "
+                         "sparse problems iterate mask-based")
     B = state.x.shape[0]
     order = torch.argsort((~state.free).to(torch.uint8), dim=-1,
                           stable=True)
@@ -532,14 +761,17 @@ def compact(state: LpState, prob: LpProblem, cfg: SolverConfig,
         y3_2, z4_2 = rtake(y3_2), rtake(z4_2)
     prob2 = LpProblem(b=take(prob.b), E=E2, f=f2, row_mask=rmask2,
                       var_mask=free2)
-    ginv2 = (woodbury.factorize(E2, free2, _factor_ratio(cfg)).ginv
-             if cfg.linsolve == "woodbury" else state.ginv)
+    ginv2 = state.ginv
+    if cfg.linsolve == "woodbury":
+        ginv2 = _ginv_store(woodbury.factorize(_E32(E2), free2,
+                                               _wb_ratio(cfg)).ginv, cfg)
     x2 = take(state.x)
     state2 = state.replace(
         x=x2, y1=take(state.y1), y2=take(state.y2), y3=y3_2, z4=z4_2,
         f_eff=f2, z1=take(state.z1), z2=take(state.z2),
         free=free2, fixed_val=take(state.fixed_val),
         best_sol=take(state.best_sol), x_prev=take(state.x_prev),
+        fix_count=take(state.fix_count),
         ex=_mv(E2, free2.to(x2.dtype) * x2), ginv=ginv2,
         et_next=torch.zeros_like(x2))
     return refresh_et_next(state2, prob2, cfg), prob2, idx
@@ -563,11 +795,11 @@ def select_solution(prob: LpProblem, sol_last: torch.Tensor,
     when it is feasible on the original problem and improves the
     objective or the final rounding is infeasible.  Optionally polished
     by eviction (``drop_rounds``), greedy refill (``repair_rounds``) and
-    1-for-1 swaps (``swap_rounds``).  Returns (sol, obj, infeasible_rows).
+    1-for-1 swaps (``swap_rounds``), on dense E only.  Returns
+    (sol, obj, infeasible_rows).
     """
     sols = torch.stack([sol_last, sol_best], dim=1)          # (B, 2, n)
-    E = prob.E.float()
-    ex = torch.bmm(sols, E.transpose(1, 2))                   # (B, 2, m)
+    ex = _mv_many(prob.E, sols)                               # (B, 2, m)
     viol = (ex > prob.f[:, None]) & prob.row_mask[:, None]
     infeas = viol.sum(-1)                                     # (B, 2)
     obj = (prob.b[:, None, :] * sols).sum(-1)                 # (B, 2)
@@ -579,14 +811,20 @@ def select_solution(prob: LpProblem, sol_last: torch.Tensor,
     obj_sel = torch.gather(obj, 1, k[:, None])[:, 0]
     inf_sel = torch.gather(infeas, 1, k[:, None])[:, 0]
     if repair_rounds or swap_rounds or drop_rounds:
+        if sparse_ops.is_sparse(prob.E):
+            raise ValueError(
+                "greedy/swap repair needs a dense E (per-column slack "
+                "comparisons); call select_solution without repair on "
+                "sparse problems")
         from ..ops.repair import drop_to_feasible, greedy_repair, swap_repair
+        rprob = prob.replace(E=prob.E.float())
         if drop_rounds:
-            sol = drop_to_feasible(prob, sol, rounds=drop_rounds)
+            sol = drop_to_feasible(rprob, sol, rounds=drop_rounds)
         if repair_rounds:
-            sol = greedy_repair(prob, sol, rounds=repair_rounds)
+            sol = greedy_repair(rprob, sol, rounds=repair_rounds)
         if swap_rounds:
-            sol = swap_repair(prob, sol, rounds=swap_rounds)
+            sol = swap_repair(rprob, sol, rounds=swap_rounds)
         obj_sel = (prob.b * sol).sum(-1)
-        exr = _mv(E, sol)
+        exr = _mv(rprob.E, sol)
         inf_sel = ((exr > prob.f) & prob.row_mask).sum(-1)
     return sol, obj_sel, inf_sel

@@ -164,7 +164,7 @@ def _bootstrap(state: lp_core.LpState, prob: LpProblem,
     x0 = free_f * y1
     fw = torch.bmm(prob.E.float(), torch.stack([rhs, x0], dim=2))
     Erhs, Ex0 = fw[..., 0], fw[..., 1]
-    u = lp_core._mv(state.ginv, Erhs)
+    u = lp_core._ginv_apply(state.ginv, Erhs)
     Ex_exact = (lp_core._wb_ratio(cfg) / c) * u
     rho_nx, _ = _rho_gamma(it + 1, cfg)
     y3 = torch.clamp_min(state.f_eff - state.ex - state.z4 / rho, 0.0)
@@ -378,7 +378,7 @@ def _glue(carry: StreamCarry, outs: SweepOut, prob: LpProblem,
     if Gp is not None:
         u_n = symv(Gp, Erhs_n)
     else:
-        u_n = lp_core._mv(st.ginv, Erhs_n)
+        u_n = lp_core._ginv_apply(st.ginv, Erhs_n)
     Ex_exact_n = (ratio / (rho_nx + rho_nx)) * u_n
     Ex0_n = E_y1n
     y3_n = torch.clamp_min(st.f_eff - ex_new - z4_new / rho_nx, 0.0)
@@ -402,7 +402,6 @@ def _window(state, prob, cfg, window, skip_cvg_at, symm_apply, E_op,
             "ginv_apply='packed-sym' with ginv_dtype='bfloat16' reads more "
             "bytes than the bf16 dense apply (the packed layout is f32); "
             "pick one byte cut, not both")
-    lp_core._factor_ratio(cfg)
     if prob.E.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no stream window for device {prob.E.device}")
     m = prob.m

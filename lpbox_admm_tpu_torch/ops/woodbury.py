@@ -47,9 +47,12 @@ def factorize_from_gram(G: torch.Tensor, ratio: float) -> WoodburyFactor:
     return WoodburyFactor(ginv=_spd_inverse(G), ratio=ratio)
 
 
-def factorize(E: torch.Tensor, free: torch.Tensor,
-              ratio: float) -> WoodburyFactor:
-    """Invert ``G = ratio I + E_f E_f^T`` for the free mask (B, n)."""
+def factorize(E, free: torch.Tensor, ratio: float) -> WoodburyFactor:
+    """Invert ``G = ratio I + E_f E_f^T`` for the free mask (B, n); E
+    dense or an ``ops.sparse.SparseEll`` (its Gram assembled sparsely)."""
+    from . import sparse as sparse_ops
+    if sparse_ops.is_sparse(E):
+        return factorize_from_gram(sparse_ops.gram(E, free), ratio)
     Ef = E.float() * free[:, None, :].float()
     return factorize_from_gram(Ef @ Ef.transpose(1, 2), ratio)
 

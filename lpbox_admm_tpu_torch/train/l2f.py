@@ -251,7 +251,7 @@ def _tail_phase(state, orig_prob, cfg, n_new, m_new, rho_boost, max_iter,
         nfactor = None
         if prob.n <= prob.m:
             nf = woodbury.factorize_nside(prob.E, state.free,
-                                         lp._factor_ratio(cfg))
+                                         lp._wb_ratio(cfg))
             nfactor = (nf.hinv, nf.ete)
         state = solve_fused_from(state, prob, cfg, max_iters=max_iter,
                                  window=max(ws, 1000), nfactor=nfactor,

@@ -5,8 +5,7 @@ presets of ``experiments/01_run_train.sh`` / ``02_run_test.sh``).
 The same flags with the same defaults, plus ``-device`` (``cuda``
 unless the caller asks for ``cpu``).  ``check_ported`` refuses, with a
 ``ValueError`` naming what is missing, the settings whose code is not
-in the port: ``-mesh > 0`` (data parallelism over devices) and
-``-matvec_dtype bfloat16`` (E in bfloat16 inside ``core.lp.step``).
+in the port: ``-mesh > 0`` (data parallelism over devices).
 """
 
 from __future__ import annotations
@@ -44,8 +43,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("-matvec_dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="constraint-matrix storage in the solve loop "
-                        "(SolverConfig.matvec_dtype; the port takes "
-                        "float32 only)")
+                        "(SolverConfig.matvec_dtype)")
     p.add_argument("-data_dir", default="data",
                    help="instance/trajectory data root")
     p.add_argument("-mesh", type=int, default=0,
@@ -75,8 +73,3 @@ def check_ported(args: argparse.Namespace) -> None:
         raise ValueError(f"-mesh {args.mesh}: data parallelism over "
                          "devices (the JAX package's parallel/mesh.py) is "
                          "not ported; run with -mesh 0")
-    if getattr(args, "matvec_dtype", "float32") != "float32":
-        raise ValueError(f"-matvec_dtype {args.matvec_dtype}: bfloat16 E "
-                         "in core.lp.step (the JAX package's three-limb "
-                         "_emv) is not ported; run with -matvec_dtype "
-                         "float32")

@@ -431,3 +431,81 @@ def test_masked_l2f_scores_with_k2(prob, monkeypatch):
     assert int((~st.free & prob.var_mask).sum()) > 0
     assert torch.equal(st.free, sp.free)
     assert torch.equal(st.fixed_val, sp.fixed_val)
+
+# --- the very-large rungs: struct E, the Schur inverse, bfloat16 E ------
+
+@pytest.fixture(scope="module")
+def struct_pair(cuda):
+    """One CA 50x300 instance as a struct problem with its Schur inverse,
+    on the card and on the CPU."""
+    from lpbox_admm_tpu_torch.scripts import mega_l2f
+    inst = ca.generate_cauction(np.random.RandomState(5), n_items=50,
+                                n_bids=300, return_coo=True)
+    return inst, mega_l2f.build_struct(inst, device=cuda), \
+        mega_l2f.build_struct(inst, device="cpu")
+
+
+def test_struct_products_and_schur_apply_match_cpu(struct_pair):
+    """The struct gathers and the Schur apply on the card against the
+    same on the CPU: 1e-6 of max |ref| (f32 sums in another order), and
+    the apply unchanged by the caller's TF32 setting."""
+    _, (pg, gg, _), (pc, gc, _) = struct_pair
+    gen = torch.Generator().manual_seed(0)
+    V = torch.rand(1, 3, pc.n, generator=gen)
+    W = torch.randn(1, 2, pc.m, generator=gen)
+    rel = lambda a, b: ((a.cpu() - b).abs().max() / b.abs().max()).item()
+    assert rel(pg.E.mv_many(V.cuda()), pc.E.mv_many(V)) <= 1e-6
+    assert rel(pg.E.mtv_many(W.cuda()), pc.E.mtv_many(W)) <= 1e-6
+    ref = gc.apply(W[:, 0])
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf = gg.apply(W[:, 0].cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert rel(tf, ref) <= 1e-6
+    assert rel(gg.apply(W[:, 0].cuda()), ref) <= 1e-6
+
+
+def test_bf16_emv_on_card_and_one_limb_plant(prob):
+    """The three-limb products with cuBLAS's f32 output on the card
+    against the float32 product: 1e-6 of max |ref|; one limb misses it."""
+    gen = torch.Generator(prob.device).manual_seed(0)
+    V = torch.rand(prob.batch, 2, prob.n, device=prob.device,
+                   generator=gen) * 4 - 2
+    W = torch.rand(prob.batch, 3, prob.m, device=prob.device,
+                   generator=gen) * 200 - 100
+    E16 = prob.E.to(torch.bfloat16)
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    ref = lp._mv_many(prob.E, V)
+    assert rel(lp._mv_many(E16, V), ref) <= 1e-6
+    assert rel(lp._mtv_many(E16, W), lp._mtv_many(prob.E, W)) <= 1e-6
+    one = lp._limbs3(V)[..., :1].permute(0, 2, 1, 3).reshape(
+        prob.batch, prob.n, 2)
+    assert rel(lp._bf16_bmm(E16, one).transpose(1, 2), ref) > 1e-4
+
+
+def test_k2_at_mega_row_count(cuda):
+    """K2 on 100 000 rows (the mega rung's policy window; not a multiple
+    of either kernel's block) against its plain version."""
+    pcfg = PolicyConfig(net="mha")
+    pk = fused_policy.pack_policy_weights(load_policy(CKPT, device=cuda))
+    rows = torch.rand(100000, 100, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(2))
+    sk = fused_policy.policy_scores_fused(pk, rows, pcfg)
+    sp = fused_policy.policy_scores_plain(pk, rows, 5)
+    assert (sk - sp).abs().max().item() <= 1e-4
+
+
+def test_l2f_solve_struct_scores_through_k2(struct_pair):
+    """``l2f_solve_struct`` on the card launches K2 once per policy window
+    (counted), and its result is feasible."""
+    from lpbox_admm_tpu_torch.scripts import mega_l2f
+    from lpbox_admm_tpu_torch.train import l2f_struct
+    inst, (pg, gg, rm), _ = struct_pair
+    k2 = fused_policy.LAUNCHES
+    out = l2f_struct.l2f_solve_struct(
+        pg, gg, inst, rm[0], mega_l2f.make_scorer(CKPT, 100, "cuda"), CFG,
+        policy_windows=3, cap=4000)
+    assert fused_policy.LAUNCHES == k2 + 3
+    assert out["infeasible"] == 0 and out["decided"] > 0

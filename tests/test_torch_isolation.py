@@ -57,6 +57,10 @@ for m in pkgutil.walk_packages(lpbox_admm_tpu_torch.__path__,
 import chip_smoke
 assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
 assert "lpbox_admm_tpu_torch.scripts.probe_dot" in sys.modules
+for name in ("ops.sparse", "ops.mxu_sparse", "ops.ca_sparse",
+             "ops.struct_ginv", "train.l2f_struct", "scripts.mega_l2f",
+             "scripts.auto_rule"):
+    assert "lpbox_admm_tpu_torch." + name in sys.modules, name
 print("imports-ok")
 """
 
@@ -83,6 +87,36 @@ def test_cuda_default_does_not_fall_back_to_cpu():
     with pytest.raises(RuntimeError, match="cuda"):
         load_policy(str(ROOT / "checkpoints/ca500_mlp/checkpoint/"
                         "best_checkpoint.npz"))
+
+
+def test_large_rung_entry_points_default_to_cuda():
+    """The sparse, structured and bfloat16 problem builders, the Schur
+    build and ``scripts.mega_l2f``'s helpers run on the card unless asked for
+    the CPU: without a card they raise instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from lpbox_admm_tpu_torch.adapters import ca
+    from lpbox_admm_tpu_torch.ops import ca_sparse, sparse, struct_ginv
+    from lpbox_admm_tpu_torch.scripts import mega_l2f
+    from lpbox_admm_tpu_torch.train import l2f_struct
+    inst = ca.generate_cauction(np.random.RandomState(0), n_items=20,
+                                n_bids=60, return_coo=True)
+    r, c, v, shape = inst[1]
+    calls = [lambda: ca.make_sparse_problem([inst]),
+             lambda: ca.make_struct_problem([inst]),
+             lambda: ca.make_dense_bf16_problem([inst]),
+             lambda: sparse.from_coo([(r, c, v)], shape),
+             lambda: sparse.empty(1, 4, 4),
+             lambda: ca_sparse.build([(r, c, v)], [shape], 64),
+             lambda: struct_ginv.build_struct_ginv(
+                 [(r, c, v)], [shape], [np.arange(shape[0])], 128, 0, 64,
+                 2.0),
+             lambda: mega_l2f.build_struct(inst),
+             lambda: l2f_struct.window_decisions(
+                 np.zeros((4, 100)), None, 100, 0.9, 1, 1)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -4,8 +4,8 @@ package (CPU).
 * CA instance files (``_b.txt``, ``_C.txt``, ``.lp``), the allres
   oracle CSV and the xiter trajectory CSV: byte for byte the JAX
   package's, and read back as it reads them.
-* ``utils/cmd_args``: the same flags plus ``-device``; ``-mesh > 0`` and
-  ``-matvec_dtype bfloat16`` refused with the missing part named.
+* ``utils/cmd_args``: the same flags plus ``-device``; ``-mesh > 0``
+  refused with the missing part named, ``-matvec_dtype bfloat16`` taken.
 * ``utils/profiling``: phase totals, ``perturb`` as the JAX package
   draws it.
 * ``experiments/run_lp``: generate -> solve -> train -> test on the CPU
@@ -109,9 +109,10 @@ def test_cmd_args_refuse_what_is_not_ported():
     check_ported(a)
     with pytest.raises(ValueError, match="parallel"):
         check_ported(base_parser("x").parse_args(["-mesh", "2"]))
-    with pytest.raises(ValueError, match="bfloat16"):
-        check_ported(base_parser("x").parse_args(
-            ["-matvec_dtype", "bfloat16"]))
+    # bfloat16 E in core.lp.step is ported: the flag passes
+    bf = base_parser("x").parse_args(["-matvec_dtype", "bfloat16"])
+    check_ported(bf)
+    assert bf.matvec_dtype == "bfloat16"
 
 
 def test_profiling_matches_jax():

@@ -171,9 +171,12 @@ def test_stream_refuses_what_it_does_not_port():
     s0 = tlp.init_state(tp, CFG)
     with pytest.raises(ValueError, match="woodbury"):
         fused_stream.lp_window_stream(s0, tp, LP_CONFIG, 2)
-    with pytest.raises(ValueError, match="ginv_dtype"):
-        fused_stream.lp_window_stream(s0, tp,
-                                      CFG.replace(ginv_dtype="bfloat16"), 2)
+    # bfloat16 G^-1 storage is ported (the JAX package's stream window
+    # takes it too); test_torch_lp_options.py holds its products
+    bcfg = CFG.replace(ginv_dtype="bfloat16")
+    sb = fused_stream.lp_window_stream(tlp.init_state(tp, bcfg), tp, bcfg, 2)
+    assert sb.ginv.dtype == torch.bfloat16 and sb.it == 2
+    assert bool(torch.isfinite(sb.x).all())
     with pytest.raises(ValueError, match="m <= 4096"):
         fused_stream._plan(8, 4224, 4096, 2, 132)
     with pytest.raises(ValueError, match="multiple of 128"):

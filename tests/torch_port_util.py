@@ -36,11 +36,18 @@ def np_of(v):
 
 
 def torch_state(jstate):
-    """A JAX ``LpState`` as the port's ``LpState`` (CPU tensors)."""
+    """A JAX ``LpState`` as the port's ``LpState`` (CPU tensors; a
+    Schur-structured G^-1 as the port's ``StructGinv``)."""
+    from lpbox_admm_tpu_torch.ops.struct_ginv import StructGinv
     kw = {}
     for f in tlp.LpState.__dataclass_fields__:
         v = getattr(jstate, f)
-        kw[f] = int(v) if f == "it" else torch.from_numpy(np.array(v))
+        if f == "it":
+            kw[f] = int(v)
+        elif getattr(v, "is_struct_ginv", False):
+            kw[f] = StructGinv(*(torch.from_numpy(np.array(a)) for a in v))
+        else:
+            kw[f] = torch.from_numpy(np.array(v))
     return tlp.LpState(**kw)
 
 
