@@ -42,6 +42,23 @@ the card, with a one-limb product as a planted fault; the bfloat16 store
 of G^{-1}; ``solve(rule_fixing=True)`` on 8 instances; ``solve_auto``,
 which must take K1 and give the plain solve's objective bit for bit.
 
+Then the segmentation workload (the paper's second): 8 synthetic images
+at 100 x 100 and 8 at 316 x 316 (``seg_images``: smoothed Gaussian
+random fields, quantised as the reference's loader quantises), each
+batch solved plain (``build_dataset_qp``, polished by 8 one-flip and 4
+domino sweeps, with a profile of a grid QP iteration) and by the masked
+``l2f_solve`` and the compacting ``l2f_solve_compact_qp`` with the
+shipped ``seg_mha`` policy (5 tokens of 5 on sliding windows, K2 at
+stride 1) at ``run_seg -phase test``'s protocol, the two l2f paths timed
+in turns (``run_seg``'s ``-compact`` rule on the card); at 1e4 px the
+card is held against the JAX package's CPU readings on the same images
+(``SEG_REFEREE``), and a planted fault (the fix values inverted) must
+cross the gap bound; K2 against its plain version on the 1e5-px first
+policy window's 798 848 rows and on a row count that is not a multiple
+of 16, and timed there; the brute-force checks of the general eq/ineq
+solver (``core.general``); one ``run_seg -phase train`` epoch from
+``seg_mha`` through its ``main``, its checkpoint read back into K2.
+
 Then the very-large rung of the reference's instance ladder: its
 canonical (1000 items, 100 000 bids) instance, generated by the port's
 ``generate_cauction(return_coo=True)`` in a worker process while the
@@ -80,12 +97,12 @@ plain versions on the first block of 8, the xl solve, a packed-symmetric
 window, the xl l2f solve, K2 and K1 against their plain versions on the
 operands the xl l2f solve gave them (its first policy window's 131 072
 trajectory rows; the tail's start state in its compacted bucket, with a
-planted fault), the mega rung, kernel timings (K1 also at that bucket; K2 at 65 536
+planted fault), the mega rung, the seg phase, kernel timings (K1 also at that bucket; K2 at 65 536
 rows split into its two kernels by the profiler, with its closed-form L2
 weight bytes and the card's mma.sync TF32 rate from
 ``scripts/tc_rate.py``), and last the train phase's time split under the
 profiler (a ``core.lp`` window of its dataset solves, one optimizer
-step); the whole script under 600 s.
+step); the whole script under 540 s.
 Fails on a build or launch error, a kernel/plain disagreement, a
 planted fault that a kernel's limit does not catch, a repeat launch
 that differs, a one-byte K1 route that differs from the f32 route in
@@ -101,9 +118,14 @@ solve's, a three-limb product more than 1e-6 off float32 or a one-limb
 plant within it, a rule-fixing solve without fixes, ``solve_auto`` off
 K1 at CA-500, a mega instance of another shape, struct products more
 than 1e-5 off float64, an infeasible mega row, or a struct l2f objective
-more than 1% above the oracle.  Prints one progress line per phase, a JSON ``kernels`` line,
+more than 1% above the oracle, seg plain energies off the referee (the
+mean by more than 0.5%, an image by more than 2%), a masked seg l2f mean
+gap more than 1 point from the referee's or pixels fixed more than 5%
+from its, a planted seg fault within that gap bound, a general solve off
+its brute-force bound, or a seg training epoch with a non-finite loss or
+a checkpoint whose K2 scores differ from the trained module's.  Prints one progress line per phase, a JSON ``kernels`` line,
 the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``; the cold run takes about 400 s of the 600 s budget.
+{...}}``; the cold run takes about 420 s of the 540 s budget.
 
 Needs a CUDA device: without one it exits non-zero at once.  It imports
 only the port, torch, numpy, scipy and the standard library, and writes
@@ -124,7 +146,7 @@ CKPT = os.path.join(ROOT, "checkpoints", "ca500_mha", "checkpoint",
                     "best_checkpoint.npz")
 N_ITEMS, N_BIDS, BATCH, SEED = 100, 500, 128, 2207
 REPAIR_ROUNDS, SWAP_ROUNDS = 16, 4
-TOTAL_BUDGET_S = 600           # whole script, build included
+TOTAL_BUDGET_S = 540           # whole script, build included
 # data-sheet figures of the H100 SXM (f32 outside the tensor cores, HBM)
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12       # dense, on the tensor cores
@@ -192,7 +214,59 @@ STEP_GRAD_TOL = 1e-3
 MASKED_CHECK_ITERS = 500
 TRAIN_GAP = 0.10
 
+# The segmentation workload (the paper's second): SEG_BATCH synthetic
+# images of seg_images' recipe at SEG_GRID (1e4 px, the standard size)
+# and at SEG_GRID_XL (99 856 px, the generalisation size), solved plain
+# (build_dataset_qp, 50 recorded iterations, polished by SEG_REPAIR
+# one-flip and SEG_PAIR domino sweeps) and by the masked and the
+# compacting l2f with the shipped seg_mha policy at run_seg -phase test's
+# protocol (ws SEG_WS, SEG_MAX_ITER iterations, the same polish).  At 1e4
+# px the card is held against the JAX package's CPU run on the same
+# images (SEG_REFEREE, made by `JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/torch_port_util.py`, recomputed by tests/test_torch_seg.py): the
+# mean plain energy within SEG_MEAN_TOL and each image's within
+# SEG_IMAGE_TOL, relative; the masked l2f's mean gap within SEG_GAP_PP
+# (absolute, in units of the gap) and its mean pixels fixed within
+# SEG_FIX_TOL, relative.  A planted fault -- the policy's fix values
+# inverted (scores 1 - s) -- must cross the gap bound.
+# The gap is relative to |plain energy|; seed 1's smallest is 571 (seed
+# 0's fifth image has +119, where a gap of 99% makes one image's rounding
+# noise the 8-image mean's).
+SEG_SEED, SEG_SEED_XL = 1, 2
+SEG_BATCH = 8
+SEG_GRID, SEG_GRID_XL = (100, 100), (316, 316)
+SEG_WS, SEG_MAX_ITER, SEG_REPAIR, SEG_PAIR = 10, 30, 8, 4
+SEG_REFEREE = {
+    "plain_energy": [-2291.0, -1444.0, -571.0, -738.0, -1614.0, -1091.0,
+                     -3038.0, -618.0],
+    "plain_iters": 650,
+    "l2f_gap_mean": 0.06306047737598419,
+    "l2f_fixed": [6829, 6688, 6152, 6367, 8309, 6028, 7237, 6480],
+    "l2f_fix_errors": [0, 0, 10, 0, 0, 2, 16, 2]}
+SEG_MEAN_TOL, SEG_IMAGE_TOL, SEG_GAP_PP, SEG_FIX_TOL = 0.005, 0.02, 0.01, 0.05
+SEG_BUDGET_S = 90
+
 T_START = time.perf_counter()
+
+
+def seg_image(rng, H, W):
+    """A synthetic segmentation image: a smoothed Gaussian random field
+    (sigma H/12) scaled to [0, 1], plus noise of 0.05, clipped,
+    quantised to 8 bits and divided by 263 as the reference's loader
+    scales intensities (tests/torch_port_util.py holds the same
+    recipe)."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+    f = gaussian_filter(rng.randn(H, W), sigma=H / 12)
+    f = (f - f.min()) / (f.max() - f.min())
+    f = np.clip(f + 0.05 * rng.randn(H, W), 0.0, 1.0)
+    return np.round(255 * f) / 263.0
+
+
+def seg_images(seed, count, H, W):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [seg_image(rng, H, W) for _ in range(count)]
 
 
 def log(msg):
@@ -1587,6 +1661,360 @@ def mega_phase(mega_inst, model, packed, pcfg, lp, fused_policy, l2f):
     return out, k2, first["rows"]
 
 
+# --- the segmentation workload ---------------------------------------------
+
+SEG_CKPT = os.path.join(ROOT, "checkpoints", "seg_mha", "checkpoint",
+                        "best_checkpoint.npz")
+# the brute-force checks of tests/test_general.py (its CFG)
+GENERAL_CFG = dict(initial_rho=5.0, learning_fact=1.03, rho_change_step=5,
+                   stop_threshold=1e-3, std_threshold=1e-7, history_size=5,
+                   gamma0=1.0, gamma_factor=0.99, max_iters=4000)
+
+
+def qp_split(prob, cfg, qp, W=20):
+    """W grid QP iterations from the start: the wall per iteration (host
+    clock, synchronised), then the same under the profiler for the
+    card's busy time and kernels per iteration; idle share 1 - busy /
+    wall (as ``struct_split``)."""
+    import torch
+    s0 = qp.init_state(prob, cfg)
+    qp.solve_window(s0, prob, cfg, 2, record=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qp.solve_window(s0, prob, cfg, W, record=False)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / W
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        qp.solve_window(s0, prob, cfg, W, record=False)
+        torch.cuda.synchronize()
+    evs = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in evs) / 1e3 / W
+    kernels = sum(e.count for e in evs if e.self_device_time_total > 0) / W
+    return {"wall_ms_per_it": wall, "device_busy_ms_per_it": busy,
+            "device_kernels_per_it": kernels,
+            "device_idle_share": 1.0 - busy / wall}
+
+
+def brute_force(A, b, C=None, d=None, E=None, f=None):
+    """The exhaustive optimum over feasible binary vectors (small n)."""
+    import itertools
+    import numpy as np
+    X = np.array(list(itertools.product([0.0, 1.0], repeat=b.shape[0])))
+    ok = np.ones(len(X), bool)
+    if C is not None:
+        ok &= np.all(np.isclose(X @ C.T, d), axis=1)
+    if E is not None:
+        ok &= np.all(X @ E.T <= f + 1e-9, axis=1)
+    v = np.einsum("ki,ij,kj->k", X, A, X) + X @ b
+    v[~ok] = np.inf
+    return float(v.min())
+
+
+def general_checks(general, SolverConfig):
+    """The brute-force cases of tests/test_general.py on the card:
+    unconstrained (n 10: never below the optimum, within half its spread
+    above it), an equality (n 12, sum x = 4 exactly, ||Cx - d|| < 1e-6),
+    an inequality (n 12, sum x <= 5, no violated row), both (sum of the
+    first half = 2, sum x <= 6), and the equality's quality over four
+    instances (mean gap to the optimum below 0.35 of |opt| + 1)."""
+    import numpy as np
+    cfg = SolverConfig(**GENERAL_CFG)
+    rng = np.random.RandomState(0)
+
+    def random_qp(n):
+        M = rng.randn(n, n) * 0.5
+        return (M + M.T) / 2, rng.randn(n) * 2
+
+    def run(A, b, **blocks):
+        p = general.make_general(A=A[None], b=b[None], device="cuda",
+                                 **{k: v[None] for k, v in blocks.items()})
+        st = general.solve(p, cfg, window=50)
+        eq, ineq = general.constraint_violation(st, p)
+        x = general.solution(st)[0].cpu().numpy()
+        require(finite(st.x), "general: finite")
+        return (x, general.objective(st, p).item(), eq.item(),
+                int(ineq.item()), st.it)
+
+    out = {}
+    A, b = random_qp(10)
+    x, obj, _, _, it = run(A, b)
+    opt = brute_force(A, b)
+    out["unconstrained"] = {"obj": obj, "opt": opt, "it": it}
+    require(opt - 1e-4 <= obj <= opt + 0.5 * (abs(opt) + 1.0),
+            f"general unconstrained: {obj} against the optimum {opt}")
+    n = 12
+    A, b = random_qp(n)
+    C, d = np.ones((1, n)), np.array([4.0])
+    x, obj, eq, _, it = run(A, b, C=C, d=d)
+    out["equality"] = {"obj": obj, "opt": brute_force(A, b, C, d),
+                       "sum": float(x.sum()), "eq": eq, "it": it}
+    require(x.sum() == 4.0 and eq < 1e-6,
+            f"general equality: sum {x.sum()}, ||Cx - d|| {eq}")
+    A, b = random_qp(n)
+    E, f = np.ones((1, n)), np.array([5.0])
+    x, obj, _, ineq, it = run(A, b - 2.0, E=E, f=f)
+    out["inequality"] = {"obj": obj, "opt": brute_force(A, b - 2.0, E=E, f=f),
+                         "sum": float(x.sum()), "violated": ineq, "it": it}
+    require(ineq == 0 and x.sum() <= 5,
+            f"general inequality: {ineq} violated rows, sum {x.sum()}")
+    A, b = random_qp(n)
+    C = np.zeros((1, n))
+    C[0, :6] = 1.0
+    d, E, f = np.array([2.0]), np.ones((1, n)), np.array([6.0])
+    x, obj, eq, ineq, it = run(A, b, C=C, d=d, E=E, f=f)
+    out["both"] = {"obj": obj, "opt": brute_force(A, b, C, d, E, f),
+                   "eq": eq, "violated": ineq, "it": it}
+    require(eq < 1e-6 and ineq == 0 and x[:6].sum() == 2.0,
+            f"general both: ||Cx - d|| {eq}, {ineq} violated rows, first "
+            f"half {x[:6].sum()}")
+    gaps = []
+    for _ in range(4):
+        A, b = random_qp(n)
+        C4, d4 = np.ones((1, n)), np.array([4.0])
+        x, obj, _, _, _ = run(A, b, C=C4, d=d4)
+        if x.sum() == 4.0:
+            opt = brute_force(A, b, C4, d4)
+            gaps.append((obj - opt) / (abs(opt) + 1.0))
+    out["equality_quality_gaps"] = gaps
+    require(len(gaps) >= 2 and float(np.mean(gaps)) < 0.35,
+            f"general equality quality: gaps {gaps}")
+    return out
+
+
+def seg_train_check(images, seg_pcfg, rows, fused_policy, l2f):
+    """``run_seg -phase train`` through its ``main``: 1 epoch from
+    seg_mha on the first 6 + 2 images (written as .npy, which the
+    adapter reads without PIL), ``-eval_semantics full``; the loss is
+    finite; the epoch's checkpoint, in the JAX package's format, read
+    back into K2 on ``rows`` equals the trained module's forward within
+    K2_TOL."""
+    import tempfile
+    import numpy as np
+    from lpbox_admm_tpu_torch.experiments import run_seg
+    from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
+    with tempfile.TemporaryDirectory() as tmp:
+        img_dir = os.path.join(tmp, "images")
+        os.makedirs(img_dir)
+        for i, im in enumerate(images):
+            np.save(os.path.join(img_dir, f"{i}.npy"), im)
+        lines = []
+        res = run_seg.main(
+            ["-phase", "train", "-image_dir", img_dir, "-n", "8",
+             "-n_eval", "2", "-num_epochs", "1", "-init_checkpoint",
+             SEG_CKPT, "-eval_semantics", "full", "-save_dir",
+             os.path.join(tmp, "save"), "-result_dir",
+             os.path.join(tmp, "result")], log=lines.append)
+        for line in lines:
+            log("    run_seg: " + line)
+        loss = res["history"][0]["loss"]
+        require(np.isfinite(loss), f"seg train: finite loss {loss}")
+        path = os.path.join(tmp, "save", "checkpoint", "checkpoint_0.npz")
+        back = load_policy(path, node_size=5, chunk_dim=5, device="cuda")
+        packed = fused_policy.pack_policy_weights(back)
+        sk = fused_policy.policy_scores_cuda(packed, rows, 1)
+        sm = l2f.policy_scores(res["state"].model.eval(), rows, seg_pcfg)
+        err = (sk - sm).abs().max().item()
+        log(f"  seg train: loss {loss:.5f}, gap "
+            f"{res['history'][0]['gap']:+.4%}, checkpoint read back into "
+            f"K2 on {rows.shape[0]} rows: {err:.3e} from the trained "
+            "module")
+        require(finite(sk) and err <= K2_TOL,
+                f"seg train: K2 of the written checkpoint {err:.3e}")
+    return {"loss": loss, "gap": res["history"][0]["gap"],
+            "best_gap": res["best_gap"], "k2_readback_err": err}
+
+
+def k2_seg_timing(fused_policy, packed, op, rows):
+    """K2 at the seg shape (T 5 tokens of C 5, stride 1, ws 10): ms a
+    launch (CUDA events), its plain version, and the bound: 3 TF32
+    passes of its flops over PEAK_TF32_FLOPS against its bytes (rows
+    and scores once, the packed weights once) over PEAK_HBM_BYTES."""
+    R, ws = rows.shape
+    T, E = packed.peb.shape
+    C = packed.w_top.shape[0]
+    L = packed.wqkv.shape[0]
+    F = packed.w1.shape[-1]
+    ms = cuda_ms(lambda: fused_policy.policy_scores_cuda(packed, rows, 1,
+                                                         op), 3)
+    plain_ms = cuda_ms(lambda: fused_policy.policy_scores_plain(
+        packed, rows, 1), 1)
+    fma_row = T * C * E + L * (T * E * 3 * E + 2 * T * T * E + T * E * E
+                               + 2 * T * E * F) \
+        + T * E * 256 + 256 * 128 + 128 * 16 + 16
+    flops = 2.0 * fma_row * R
+    nbytes = rows.numel() * 4 + R * 4 + sum(t.numel() * 4 for t in packed)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
+    split = kernel_split(lambda: fused_policy.policy_scores_cuda(
+        packed, rows, 1, op), ("policy_encoder_kernel",
+                               "policy_classifier_kernel"))
+    log(f"  K2 at the seg shape ({R} rows x ws {ws}, {T} tokens of {C}, "
+        f"stride 1): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{max(t_ops, t_bytes) * 1e3:.3f} ms (3 TF32 passes of "
+        f"{flops:.3e} flop; {nbytes:.3e} B); per kernel "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    return {"shape": [R, ws, T, C, 1], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "per_kernel_ms": split}
+
+
+def seg_phase(fused_policy, l2f):
+    """The segmentation workload, 1e4 px and 1e5 px: the plain solve
+    (with a profile of its iteration), the masked and the compacting l2f
+    with seg_mha (K2 launches counted from 0 before them and read after
+    them), the referee bounds at 1e4 px with a planted fault, K2 at the
+    seg shape against its plain version on the 1e5-px first policy
+    window's rows (and a row count that is not a multiple of 16), the
+    general solver's brute-force checks and one run_seg training epoch.
+    Returns the summary, K2's launches on the seg path and its timing."""
+    import numpy as np
+    import torch
+    from lpbox_admm_tpu_torch.adapters import segmentation as seg
+    from lpbox_admm_tpu_torch.config import (SEG_CONFIG, PolicyConfig,
+                                             SolverConfig)
+    from lpbox_admm_tpu_torch.core import general, qp
+    from lpbox_admm_tpu_torch.train import imitation
+    from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
+
+    cfg = SEG_CONFIG
+    spcfg = PolicyConfig(node_size=5, chunk_dim=5, window_mode="sliding")
+    model = load_policy(SEG_CKPT, node_size=5, chunk_dim=5, device="cuda")
+    out, probs = {}, {}
+    k2_launches = 0
+    k2_rows = None
+    for tag, seed, (H, W) in (("1e4", SEG_SEED, SEG_GRID),
+                              ("1e5", SEG_SEED_XL, SEG_GRID_XL)):
+        r = out[tag] = {"grid": [SEG_BATCH, H, W]}
+        t0 = time.perf_counter()
+        images = seg_images(seed, SEG_BATCH, H, W)
+        prob = seg.make_problem(images, device="cuda")
+        probs[tag] = (images, prob)
+        r["make_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = imitation.build_dataset_qp(prob, cfg, record_iters=5 * SEG_WS,
+                                        repair_sweeps=SEG_REPAIR,
+                                        pair_sweeps=SEG_PAIR)
+        energy = ds.oracle_obj.cpu().numpy()
+        r.update(plain_s=time.perf_counter() - t0,
+                 plain_solve_s=ds.oracle_wall_s, plain_iters=ds.oracle_iters,
+                 plain_energy=energy.tolist(),
+                 plain_ms_per_it=ds.oracle_wall_s * 1e3 / ds.oracle_iters)
+        r["qp_iteration"] = qp_split(prob, cfg, qp)
+        require(np.all(np.isfinite(energy)), f"seg {tag} plain: finite")
+        log(f"  seg {tag} plain ({SEG_BATCH} x {H} x {W}): {ds.oracle_iters}"
+            f" iterations, mean energy {energy.mean():.2f}, wall "
+            f"{r['plain_s']:.2f} s (solve {ds.oracle_wall_s:.2f} s, "
+            f"{r['plain_ms_per_it']:.3f} ms an iteration); a QP iteration "
+            f"from the start: {r['qp_iteration']}")
+        labels = ds.labels.reshape(prob.b.shape)
+        solvers = {"masked": l2f.l2f_solve,
+                   "compact": l2f.l2f_solve_compact_qp}
+        # in turns, so that the two walls (run_seg's -compact rule on the
+        # card) share the card's state: masked, compact, compact, masked
+        for mode in ("masked", "compact", "compact", "masked"):
+            fused_policy.LAUNCHES = 0
+            with FirstCall(l2f, "policy_scores_fused") as first:
+                t0 = time.perf_counter()
+                st = solvers[mode](prob, model, cfg, spcfg, ws=SEG_WS,
+                                   max_iter=SEG_MAX_ITER)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = fused_policy.LAUNCHES
+            k2_launches += launches
+            require(launches > 0, f"seg {tag} {mode}: K2 launched")
+            if mode in r:
+                r[mode]["walls_s"].append(wall)
+                continue
+            m = l2f.l2f_metrics_qp(st, prob, ds.oracle_obj, labels,
+                                   repair_sweeps=SEG_REPAIR,
+                                   pair_sweeps=SEG_PAIR)
+            gap = m["energy_gap"].cpu().numpy()
+            r[mode] = {"walls_s": [wall], "k2_launches": launches,
+                       "it": st.it, "gap": gap.tolist(),
+                       "gap_mean": float(gap.mean()),
+                       "n_fixed": m["n_fixed"].tolist(),
+                       "px_agree": m["px_agree"].tolist(),
+                       "fix_errors": m["fix_errors"].tolist()}
+            log(f"  seg {tag} l2f {mode}: wall {wall:.2f} s, {st.it} "
+                f"iterations, gap mean {gap.mean():+.4%} max "
+                f"{gap.max():+.4%}, pixels fixed mean "
+                f"{m['n_fixed'].float().mean().item():.0f}, agreement "
+                f"mean {m['px_agree'].float().mean().item():.0f}, fix "
+                f"errors {m['fix_errors'].tolist()}, K2 launches {launches}")
+            require(np.all(np.isfinite(gap)), f"seg {tag} {mode}: finite")
+            if tag == "1e5" and mode == "masked":
+                k2_rows = first.args[1]
+        log(f"  seg {tag} walls in turns: masked "
+            f"{[round(w, 4) for w in r['masked']['walls_s']]} s, compact "
+            f"{[round(w, 4) for w in r['compact']['walls_s']]} s")
+
+    # --- the referee at 1e4 px, and a planted fault that must cross it ----
+    ref = SEG_REFEREE
+    r = out["1e4"]
+    e, e_ref = np.array(r["plain_energy"]), np.array(ref["plain_energy"])
+    rel = np.abs(e - e_ref) / np.abs(e_ref)
+    mean_rel = abs(e.mean() - e_ref.mean()) / abs(e_ref.mean())
+    gap_d = abs(r["masked"]["gap_mean"] - ref["l2f_gap_mean"])
+    fix_rel = abs(np.mean(r["masked"]["n_fixed"]) - np.mean(ref["l2f_fixed"])
+                  ) / np.mean(ref["l2f_fixed"])
+    images, prob = probs["1e4"]
+    real_scorer = l2f._scorer
+
+    def inverted(*a, **k):
+        score = real_scorer(*a, **k)
+        return lambda rows: 1.0 - score(rows)
+
+    l2f._scorer = inverted
+    try:
+        st = l2f.l2f_solve(prob, model, cfg, spcfg, ws=SEG_WS,
+                           max_iter=SEG_MAX_ITER)
+    finally:
+        l2f._scorer = real_scorer
+    ds_gap = l2f.l2f_metrics_qp(st, prob, torch.tensor(e, device="cuda"),
+                                repair_sweeps=SEG_REPAIR,
+                                pair_sweeps=SEG_PAIR)["energy_gap"]
+    fault_d = abs(ds_gap.mean().item() - ref["l2f_gap_mean"])
+    out["referee"] = {"plain_rel": rel.tolist(), "plain_mean_rel": mean_rel,
+                      "gap_mean": r["masked"]["gap_mean"],
+                      "gap_mean_jax": ref["l2f_gap_mean"], "gap_d": gap_d,
+                      "fixed_rel": fix_rel,
+                      "fix_errors_jax": ref["l2f_fix_errors"],
+                      "planted_gap_mean": ds_gap.mean().item(),
+                      "planted_gap_d": fault_d}
+    log(f"  seg referee (JAX on the CPU, same images): plain energy per "
+        f"image {np.round(rel, 5).tolist()} (tol {SEG_IMAGE_TOL}), mean "
+        f"{mean_rel:.5f} (tol {SEG_MEAN_TOL}); masked l2f gap mean "
+        f"{r['masked']['gap_mean']:+.4%} against {ref['l2f_gap_mean']:+.4%} "
+        f"({gap_d * 100:.3f} pp, tol {SEG_GAP_PP * 100:.1f}); pixels fixed "
+        f"{fix_rel:.4f} (tol {SEG_FIX_TOL}); fix errors "
+        f"{r['masked']['fix_errors']} against {ref['l2f_fix_errors']}; "
+        f"planted fault (fix values inverted): gap mean "
+        f"{ds_gap.mean().item():+.4%}, {fault_d * 100:.2f} pp off")
+    require(np.all(rel <= SEG_IMAGE_TOL) and mean_rel <= SEG_MEAN_TOL,
+            f"seg plain energies against the referee: {rel}, {mean_rel}")
+    require(gap_d <= SEG_GAP_PP, f"seg l2f gap against the referee: {gap_d}")
+    require(fix_rel <= SEG_FIX_TOL, f"seg pixels fixed: {fix_rel}")
+    require(fault_d > SEG_GAP_PP, f"seg planted fault crosses the gap "
+            f"bound: {fault_d}")
+
+    # --- K2 at the seg shape on the 1e5-px first policy window's rows -----
+    packed = fused_policy.pack_policy_weights(model)
+    pop = fused_policy.policy_operand(packed)
+    k2_err = k2_check(fused_policy, packed, pop, k2_rows, spcfg, l2f, model)
+    odd = k2_rows[:k2_rows.shape[0] - 7]
+    k2_err = max(k2_err, k2_check(fused_policy, packed, pop, odd, spcfg, l2f))
+    k2 = k2_seg_timing(fused_policy, packed, pop, k2_rows)
+    k2.update(max_abs_err=k2_err, launches=k2_launches)
+
+    out["general"] = general_checks(general, SolverConfig)
+    log(f"  general (brute force, n <= 12): {out['general']}")
+    images = probs["1e4"][0]
+    rows4 = k2_rows[:80_000]
+    out["train"] = seg_train_check(images, spcfg, rows4, fused_policy, l2f)
+    return out, k2_launches, k2
+
+
 def main():
     faulthandler.enable()
     faulthandler.dump_traceback_later(TOTAL_BUDGET_S, exit=True)
@@ -1956,10 +2384,17 @@ def run(mega_inst):
         del mega_rows
     summary["mega_s"] = ph.seconds
 
+    # --- the segmentation workload: K2's counts from 0 before each of its
+    # l2f solves, read after each ---------------------------------------------
+    with Phase("seg", SEG_BUDGET_S) as ph:
+        summary["seg"], seg_k2, k2_seg = seg_phase(fused_policy, l2f)
+    summary["seg_s"] = ph.seconds
+
     with Phase("timing", 120) as ph:
         kernels = timings(prob, cfg, pcfg, packed, pop, rows, lp, fused_lp,
                           fused_policy, launches, k1_res,
-                          max(k2_err, k2x_err, k2m_err))
+                          max(k2_err, k2x_err, k2m_err,
+                              k2_seg["max_abs_err"]))
         if tail_k1 is not None:
             summary["xl_tail_k1"] = xl_tail_k1_timing(*tail_k1, fused_lp)
             kernels[0]["routes_xl_tail"] = summary["xl_tail_k1"]["routes"]
@@ -1967,6 +2402,8 @@ def run(mega_inst):
         kernels[1]["launches_train"] = train_launches["K2"]
         kernels[0]["launches_lp_options"] = auto_k1
         kernels[1]["launches_mega"] = mega_k2
+        kernels[1]["launches_seg"] = seg_k2
+        kernels[1]["seg"] = k2_seg
         kernels += xl_timings(k3_args, Gp, v4, s0x.ginv, fused_stream, symm,
                               {"K3": xl_launches["K3"],
                                "K4": sym_launches["K4"]}, k3_res, k4_res)

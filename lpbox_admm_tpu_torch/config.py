@@ -6,7 +6,8 @@ package): the same fields, the same defaults and the same ``replace``,
 so that one set of field values drives both packages in the tests.
 
 Provenance of the presets (reference SCLBD/Accelerated-Lpbox-ADMM):
-LP preset -> LinerProgramming/.../cython_solver/LPboxADMMsolver.cpp:489-507.
+LP preset  -> LinerProgramming/.../cython_solver/LPboxADMMsolver.cpp:489-507.
+Seg preset -> Segmentation/.../cython/src/LPboxADMMsolver.cpp:658-672.
 """
 
 from __future__ import annotations
@@ -35,8 +36,8 @@ class SolverConfig:
     gamma0: float = 1.6
     gamma_factor: float = 0.95       # gamma <- max(gamma*factor, 1) on rho step
 
-    # x-update linear solve.  The port implements the exact Woodbury
-    # solve only; "cg" is kept as a value so configs stay field-equal.
+    # x-update linear solve: Jacobi PCG (every solver) or the exact
+    # Woodbury solve (core.lp only)
     pcg_tol: float = 1e-3
     pcg_maxiters: int = 1000
     linsolve: str = "cg"             # "cg" | "woodbury"
@@ -68,6 +69,22 @@ class SolverConfig:
 #: Combinatorial-auction LP preset (reference LPboxADMMsolver.cpp:489-507).
 LP_CONFIG = SolverConfig()
 
+#: Image-segmentation BQP preset (Seg LPboxADMMsolver.cpp:658-672): CG
+#: x-update, rho 5 x 1.03 every 5 iterations up to 1000, stop at 1e-3.
+SEG_CONFIG = SolverConfig(
+    stop_threshold=1e-3,
+    std_threshold=1e-6,
+    history_size=5,
+    max_iters=10_000,
+    initial_rho=5.0,
+    learning_fact=1.03,
+    rho_change_step=5,
+    rho_upper_limit=1000.0,
+    gamma0=1.0,
+    gamma_factor=0.99,
+    linsolve="cg",
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class PolicyConfig:
@@ -81,7 +98,7 @@ class PolicyConfig:
     feed_forward_hidden: int = 512
     pe_dim: int = 5                  # positional-encoding dim appended to input
     chunk_dim: int = 5               # trajectory chunk feature width
-    node_size: int = 20              # tokens per variable (20 LP)
+    node_size: int = 20              # tokens per variable (20 LP / 5 Seg)
     window_mode: str = "chunk"       # "chunk" (LP reshape) | "sliding" (Seg)
     fix_confidence: float = 0.9      # C: fix to 1 if sigma>C, to 0 if sigma<1-C
     # consecutive windows a variable must clear the bar (same side)
@@ -92,8 +109,15 @@ class PolicyConfig:
     # margin_j = (1 - C) * (1 - damage_gate * r_j)
     damage_gate: float = 0.0
     damage_rank_floor: float = 0.0
+    # seg QP only: the margin of every pixel within boundary_band
+    # 8-neighbour hops of a label change of the window-end rounding is
+    # scaled by (1 - boundary_gate); band 1 = the boundary pixels only,
+    # <= 0 disables the gate
     boundary_gate: float = 0.0
     boundary_band: int = 2
+    # seg QP only, masked path: at each fix event also fix every pixel
+    # with |x - 0.5| > traj_fix_thr to round(x); traj_fix_only ignores
+    # the policy; traj_fix_windows > 0 limits it to the first k events
     traj_fix_thr: float = 0.0
     traj_fix_only: bool = False
     traj_fix_windows: int = 0

@@ -61,6 +61,28 @@ class LpProblem:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class QpProblem:
+    """Batched unconstrained binary QP in dense form: min x.A x + b.x,
+    x in {0,1}^n.  A plain container (the JAX package's
+    ``core/problem.QpProblem``, which no solver takes): the grid
+    segmentation QP is ``core.qp.QpProblem`` (A as a stencil), a dense
+    or sparse A goes through ``core.general``."""
+
+    A: torch.Tensor          # (B, n, n) symmetric
+    b: torch.Tensor          # (B, n)
+    var_mask: torch.Tensor   # (B, n)
+    const: torch.Tensor      # (B,) additive constant (Seg's unary offset c)
+
+    @property
+    def batch(self) -> int:
+        return self.b.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.b.shape[-1]
+
+
 def pad_to(x: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     """Zero-pad ``x`` up to ``shape`` (trailing padding per axis)."""
     pads = [(0, t - s) for s, t in zip(x.shape, shape)]

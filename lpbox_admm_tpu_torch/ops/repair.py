@@ -1,16 +1,27 @@
-"""Solution repair for set-packing roundings (LP half of the JAX
-package's ``ops/repair.py``).
+"""Solution repair (the port of the JAX package's ``ops/repair.py``).
 
-Batched polishing of a binary rounding of ``min b.x  s.t.  E x <= f``
-(b <= 0 for CA auctions): eviction to feasibility, greedy refill, and
-1-for-1 swaps.  None of them degrades feasibility or the objective of a
-feasible input.  Ties go to the lowest column index, as in the JAX
+LP half: batched polishing of a binary rounding of ``min b.x  s.t.  E x
+<= f`` (b <= 0 for CA auctions): eviction to feasibility, greedy refill,
+and 1-for-1 swaps.  None of them degrades feasibility or the objective
+of a feasible input.  Ties go to the lowest column index, as in the JAX
 package (``argmin``/``argmax`` return the first extremum in both).
+
+Seg half: one-flip (``icm_descent``) and domino (``pair_descent``)
+descents for the binary grid QP ``min x^T A' x + b^T x`` on the
+``ops.stencil`` operator.  Both are discrete: every colour step flips
+pixels that are never stencil neighbours of one another, so the energy
+falls monotonically, and on the segmentation's integer weights and
+costs every quantity is an exact float32 integer -- the port gives the
+JAX package's solution bit for bit.  The reference reports the raw ADMM
+rounding (Seg LPboxADMMsolver.cpp:1376); both descents are applied alike
+to the plain oracle and the l2f side.
 """
 
 from __future__ import annotations
 
 import torch
+
+from . import stencil as st_mod
 
 _TOL = 1e-6
 
@@ -119,4 +130,63 @@ def swap_repair(prob, sol: torch.Tensor, rounds: int = 8,
                           torch.ones_like(sol), sol)
         if refill_rounds:
             sol = greedy_repair(prob, sol, rounds=refill_rounds)
+    return sol
+
+
+def _flip_delta(stencil, b: torch.Tensor, sol: torch.Tensor):
+    """Per pixel, the energy change of flipping it alone,
+    ``degree + s (2 (A'x) + b)`` with ``s = 1 - 2x``, and s."""
+    s = 1.0 - 2.0 * sol
+    return stencil.degree + s * (2.0 * stencil.a_matvec(sol) + b), s
+
+
+def icm_descent(stencil, b: torch.Tensor, mask: torch.Tensor,
+                sol: torch.Tensor, sweeps: int = 8) -> torch.Tensor:
+    """One-flip (ICM) descent: flip every pixel whose flip lowers the
+    energy, one colour of the 2x2-block 4-colouring at a time (same-
+    colour pixels are never 8-neighbours, so a colour step's flips are
+    independent and its energy change is the sum of their deltas).  A
+    sweep is 4 colour steps, 4 stencil matvecs."""
+    H, W = sol.shape[-2], sol.shape[-1]
+    dev = sol.device
+    color = ((torch.arange(H, device=dev)[:, None] % 2) * 2
+             + torch.arange(W, device=dev)[None, :] % 2)
+    for _ in range(sweeps):
+        for k in range(4):
+            delta, _ = _flip_delta(stencil, b, sol)
+            flip = (color[None] == k) & mask & (delta < -_TOL)
+            sol = torch.where(flip, 1.0 - sol, sol)
+    return sol
+
+
+def pair_descent(stencil, b: torch.Tensor, mask: torch.Tensor,
+                 sol: torch.Tensor, sweeps: int = 4) -> torch.Tensor:
+    """Domino (two-pixel) flip descent, the moves ``icm_descent`` cannot
+    reach: flipping adjacent i, j changes the energy by ``delta_i +
+    delta_j - 2 w_ij s_i s_j``.  Each orientation 8-colours its domino
+    anchors so that same-colour dominoes never interact under the
+    8-neighbour stencil: horizontal (r, c)-(r, c+1) by ``(r % 2) * 4 +
+    (c % 4)``, vertical (r, c)-(r+1, c) by ``(r % 4) * 2 + (c % 2)``.  A
+    sweep is 2 orientations x 8 colours = 16 stencil matvecs."""
+    H, W = sol.shape[-2], sol.shape[-1]
+    dev = sol.device
+    rows = torch.arange(H, device=dev)[:, None]
+    cols = torch.arange(W, device=dev)[None, :]
+    color_h = (rows % 2) * 4 + cols % 4
+    color_v = (rows % 4) * 2 + cols % 2
+    # east / south neighbour planes (ops.stencil.OFFSETS order)
+    orient = ((4, 0, 1, color_h), (6, 1, 0, color_v))
+    m_f = mask.to(sol.dtype)
+    for _ in range(sweeps):
+        for d_idx, dr, dc, color in orient:
+            m_n = st_mod.shift(m_f, dr, dc) > 0.5
+            w = stencil.weights[:, d_idx]
+            for k in range(8):
+                delta, s = _flip_delta(stencil, b, sol)
+                d_n = st_mod.shift(delta, dr, dc)
+                s_n = st_mod.shift(s, dr, dc)
+                pd = delta + d_n - 2.0 * w * s * s_n
+                flip_a = (color[None] == k) & mask & m_n & (pd < -_TOL)
+                flip_b = st_mod.shift(flip_a.to(sol.dtype), -dr, -dc) > 0.5
+                sol = torch.where(flip_a | flip_b, 1.0 - sol, sol)
     return sol

@@ -1,4 +1,4 @@
-"""Imitation training of the early-fixing policy (LP half of the JAX
+"""Imitation training of the early-fixing policy (the port of the JAX
 package's ``train/imitation.py``; reference ``PolicyKL``,
 LinerProgramming/LinearProgramming/trainer.py): the converged
 plain-ADMM solution labels each variable, and the policy is trained
@@ -7,6 +7,9 @@ with weighted BCE on per-variable trajectory windows.
 * ``build_dataset``   ~ readFile/getLabel (:32-98): ``core.lp`` windows
   record the first ``record_iters`` iterations, then the solve runs to
   convergence in windows of 100; labels are the converged solution.
+* ``build_dataset_qp`` ~ the segmentation's (Seg trainer.py readFile/
+  getLabel + xiter_all.csv): ``core.qp`` grid trajectories flattened to
+  (B, H*W, T), the oracle the plain solve's reported energy.
 * ``episode_batch``   ~ _train_mha_100 (:254-299): 10 episodes of ws
   columns, episode i weighted 1/i, padded variables weighted 0.
 * ``weighted_bce``    ~ nn.BCEWithLogitsLoss(weight) (:292), in optax's
@@ -42,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import LP_CONFIG, PolicyConfig, SolverConfig
-from ..core import lp
+from ..core import lp, qp
 from ..core.problem import Device, LpProblem, as_device
 from ..models.policy import init_weights
 from ..utils.checkpoint import (adam_arrays, load_adam_arrays,
@@ -126,6 +129,36 @@ def build_dataset(prob: LpProblem, cfg: SolverConfig,
     return TrajectoryDataset(
         traj=traj, labels=labels, var_mask=prob.var_mask, oracle_obj=oracle,
         oracle_iters=int(state.it), oracle_wall_s=wall, damage=dmg)
+
+
+def build_dataset_qp(prob: qp.QpProblem, cfg: SolverConfig,
+                     record_iters: int = 50, repair_sweeps: int = 0,
+                     pair_sweeps: int = 0) -> TrajectoryDataset:
+    """Segmentation variant of ``build_dataset``: ``record_iters``
+    recorded grid iterations, then windows of 50 to convergence; grid
+    trajectories flattened to (B, H*W, T), labels the converged
+    rounding, the oracle the plain solve's reported energy (the better
+    of the last and the incumbent rounding, polished by
+    ``repair_sweeps``/``pair_sweeps`` as ``qp.select_solution`` does),
+    so l2f gaps compare equal reporting on both sides.
+    ``oracle_wall_s`` times the plain solve up to a device
+    synchronisation."""
+    t0 = time.perf_counter()
+    state = qp.init_state(prob, cfg)
+    state, traj = qp.solve_window(state, prob, cfg, record_iters,
+                                  record=True)
+    while state.it < cfg.max_iters and not bool(state.done.all()):
+        state, _ = qp.solve_window(state, prob, cfg, 50, record=False)
+    sync(state.x)
+    wall = time.perf_counter() - t0
+    B = prob.batch
+    _, oracle = qp.select_solution(state, prob, repair_sweeps=repair_sweeps,
+                                   pair_sweeps=pair_sweeps)
+    return TrajectoryDataset(
+        traj=traj.reshape(B, -1, record_iters),
+        labels=qp.solution(state).reshape(B, -1),
+        var_mask=prob.mask.reshape(B, -1), oracle_obj=oracle,
+        oracle_iters=int(state.it), oracle_wall_s=wall)
 
 
 def episode_batch(ds: TrajectoryDataset, pcfg: PolicyConfig, ws: int,

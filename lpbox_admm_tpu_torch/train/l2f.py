@@ -1,12 +1,26 @@
-"""Learned early fixing for LPs (LP half of the JAX package's
-``train/l2f.py``).
+"""Learned early fixing (the port of the JAX package's ``train/l2f.py``).
 
 ``l2f_solve`` is the mask-based loop of the JAX package's
 ``l2f_solve`` (its l2f.py:165-243), as the trainer's in-loop
-evaluation runs it: ``core.lp`` windows of ``ws`` recorded iterations,
-the policy's score of every variable's window, a fix wherever a score
+evaluation runs it: solver windows of ``ws`` recorded iterations, the
+policy's score of every variable's window, a fix wherever a score
 clears its margin (optionally with the value taken from ``fix_values``),
-until ``max_iter`` or every instance is done.
+until ``max_iter`` or every instance is done.  It dispatches on the
+problem type as the JAX package's ``_core_of`` does: ``LpProblem`` ->
+``core.lp``, ``GeneralProblem``/``GridGeneralProblem`` ->
+``core.general``, the grid ``core.qp.QpProblem`` -> ``core.qp``, where
+the boundary gate (``qp_boundary_margins``, every window) and the
+trajectory-extremity fixes (``traj_fix_*``) also act.
+
+The segmentation half: ``l2f_solve_compact_qp`` runs the first window on
+the grid, gathers the free pixels into a flat ``core.general`` problem
+(``core.qp.compact``), shrinks it again as more pixels fix
+(``core.general.compact_sparse``) and scatters the result back into a
+grid ``QpState``; ``qp_refine_boundary`` re-frees fixed pixels on the
+label boundary for a few more iterations; ``l2f_metrics_qp`` reports
+the energy gap and pixel agreement.  As in the JAX package, the compact
+path applies the boundary gate to its grid window only and ignores the
+``traj_fix_*`` flags (it warns when given them).
 
 ``l2f_solve_compact`` runs in two phases with one host read between
 them:
@@ -29,8 +43,10 @@ x-update is Woodbury's, else through ``core.lp.solve_window``, as the
 JAX package's unfused branch does.  Every scoring of a CUDA tensor goes
 through K2 (``models.fused_policy.policy_scores_fused``); on CPU
 tensors ``l2f_solve_compact`` scores with K2's plain version and
-``l2f_solve`` with the module's own forward, as the JAX package's
-``l2f_solve`` applies the model.  The JAX package's scorer
+``l2f_solve`` and the segmentation paths with the module's own forward,
+as the JAX package's ``l2f_solve`` applies the model (its seg paths
+score with the module in XLA too; the port's K2 takes their sliding
+windows, stride 1).  The JAX package's scorer
 retry/fallback chain and fused-tail -> XLA fallback answered an
 unreliable remote TPU compiler and are not ported: nothing here catches
 a launch error and retries.
@@ -39,13 +55,14 @@ a launch error and retries.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional
 
 import torch
 from torch import nn
 
 from ..config import PolicyConfig, SolverConfig
-from ..core import lp
+from ..core import general, lp, qp
 from ..core.problem import LpProblem
 from ..models.fused_policy import pack_policy_weights, policy_operand, \
     policy_scores_fused
@@ -388,39 +405,340 @@ def _scorer(model: nn.Module, pcfg: PolicyConfig, device: torch.device,
     raise ValueError(f"no policy scorer for device {device}")
 
 
-def l2f_solve(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
+def qp_boundary_margins(x: torch.Tensor, mask: torch.Tensor,
+                        margins: torch.Tensor,
+                        pcfg: PolicyConfig) -> torch.Tensor:
+    """Boundary-distance damage gate of the seg QP: the confidence margin
+    of every pixel within ``pcfg.boundary_band`` 8-neighbour hops of a
+    label change of the rounding of ``x`` is scaled by ``1 -
+    pcfg.boundary_gate`` (band 1 = the boundary pixels only; band <= 0
+    disables the gate).  Recomputed every policy window from the live
+    iterate, so the protected band follows the moving boundary."""
+    if pcfg.boundary_band <= 0:
+        return margins
+    maskb = mask.to(torch.bool)
+    sol = (x >= 0.5).to(x.dtype) * maskb.to(x.dtype)
+    # restricted to in-mask pixels before dilating: an out-of-mask pixel
+    # (implicit label 0) would otherwise flag against an in-mask label-1
+    # neighbour and the dilation would carry that back inside
+    band = _label_band(sol, maskb, pcfg.boundary_band, mask_first=True)
+    return torch.where(band, margins * (1.0 - pcfg.boundary_gate), margins)
+
+
+def _label_band(sol: torch.Tensor, maskb: torch.Tensor, band: int,
+                mask_first: bool) -> torch.Tensor:
+    """Pixels whose 8-neighbourhood holds an in-mask pixel of another
+    label, dilated by ``band - 1`` hops (each hop kept inside the mask);
+    ``mask_first`` keeps the undilated set inside the mask too."""
+    from ..ops.stencil import OFFSETS, shift
+
+    m_f = maskb.to(sol.dtype)
+    differs = torch.zeros(sol.shape, dtype=torch.bool, device=sol.device)
+    for dr, dc in OFFSETS:
+        inb = shift(m_f, dr, dc) > 0.5
+        differs = differs | (inb & (shift(sol, dr, dc) != sol))
+    if mask_first:
+        differs = differs & maskb
+    for _ in range(band - 1):
+        wide = differs
+        d_f = differs.to(sol.dtype)
+        for dr, dc in OFFSETS:
+            wide = wide | (shift(d_f, dr, dc) > 0.5)
+        differs = wide & maskb
+    return differs
+
+
+def _core_of(problem):
+    if isinstance(problem, LpProblem):
+        return lp
+    if isinstance(problem, (general.GeneralProblem,
+                            general.GridGeneralProblem)):
+        return general
+    if isinstance(problem, qp.QpProblem):
+        return qp
+    raise TypeError(f"l2f takes an LpProblem, a GeneralProblem, a "
+                    f"GridGeneralProblem or a core.qp.QpProblem, not "
+                    f"{type(problem).__name__}")
+
+
+def _grid_margins(prob: qp.QpProblem, pcfg: PolicyConfig) -> torch.Tensor:
+    """(B, H, W) confidence margins of a grid problem: ``fix_margins`` on
+    the flattened grid (the |b|-rank gate) or the constant ``1 - C``."""
+    B = prob.batch
+    return fix_margins(prob.b.reshape(B, -1), prob.mask.reshape(B, -1),
+                       pcfg).reshape(prob.b.shape)
+
+
+def _fix_vec(sig: torch.Tensor, margins: torch.Tensor) -> torch.Tensor:
+    """1 where sigma > 1 - margin, 0 where sigma < margin, else -1."""
+    return torch.where(sig > 1.0 - margins, 1.0,
+                       torch.where(sig < margins, 0.0, -1.0)).to(sig.dtype)
+
+
+def l2f_solve(prob, model: nn.Module, cfg: SolverConfig,
               pcfg: PolicyConfig, ws: int = 100,
               max_iter: Optional[int] = None, row_chunk: int = 8192,
-              fix_values: Optional[torch.Tensor] = None) -> lp.LpState:
+              fix_values: Optional[torch.Tensor] = None):
     """Windowed solve with the policy fixing variables between windows
-    (mask-based, no compaction; the reference's ``_valid_2``
-    alternation, trainer.py:516-535).  Each round: ``ws`` recorded
-    ``core.lp`` iterations, every variable's window scored, a fix to 1
-    where the score exceeds ``1 - margin`` and to 0 where it is below
-    ``margin`` (``fix_margins``), ``core.lp.apply_fix``; until
-    ``max_iter`` iterations or every instance is done.
+    (mask-based, no compaction; the reference's ``_valid_2`` alternation,
+    LP trainer.py:516-535, and ``_my_valid``, Seg trainer.py:707-737).
+    Each round: ``ws`` recorded iterations of the problem's core, every
+    variable's window scored, a fix to 1 where the score exceeds ``1 -
+    margin`` and to 0 where it is below ``margin``, the core's
+    ``apply_fix``; until ``max_iter`` iterations or every instance is
+    done.  Margins: ``fix_margins`` (the |b|-rank gate) on LP and grid
+    problems, the constant ``1 - C`` on general ones; on grid problems
+    also the boundary gate every window and the trajectory-extremity
+    fixes (``pcfg.traj_fix_thr``, ``traj_fix_only``,
+    ``traj_fix_windows``).
 
-    ``fix_values`` (B, n): the label-floor experiment -- the policy
-    keeps its selection of decided variables, the value comes from
-    ``fix_values``.  The segmentation problem (the JAX package's
-    ``QpProblem`` branch) waits for the port of the grid QP solver."""
-    if not isinstance(prob, LpProblem):
-        raise TypeError(f"l2f_solve takes an LpProblem; the segmentation "
-                        f"QP ({type(prob).__name__}) is not ported")
+    ``fix_values`` (same shape as the solution): the label-floor
+    experiment -- the policy keeps its selection of decided variables,
+    the value comes from ``fix_values``.  Returns the core's state."""
+    core = _core_of(prob)
     if max_iter is None:
         max_iter = cfg.max_iters
+    grid = core is qp
     score = _scorer(model, pcfg, prob.device, row_chunk)
-    margins = fix_margins(prob.b, prob.var_mask, pcfg)
-    state = lp.init_state(prob, cfg)
+    if isinstance(prob, LpProblem):
+        margins = fix_margins(prob.b, prob.var_mask, pcfg)
+    elif grid:
+        margins = _grid_margins(prob, pcfg)
+    else:
+        margins = torch.full(prob.b.shape, 1.0 - pcfg.fix_confidence,
+                             dtype=torch.float32, device=prob.device)
+    state = core.init_state(prob, cfg)
     while state.it < max_iter and not bool(state.done.all()):
-        state, traj = lp.solve_window(state, prob, cfg, ws, record=True)
+        state, traj = core.solve_window(state, prob, cfg, ws, record=True)
         sig = score(traj.reshape(-1, ws)).reshape(state.x.shape)
+        m = margins
+        if grid and pcfg.boundary_gate > 0:
+            m = qp_boundary_margins(state.x, prob.mask, m, pcfg)
         if fix_values is not None:
-            decided = (sig > 1.0 - margins) | (sig < margins)
+            decided = (sig > 1.0 - m) | (sig < m)
             vec = torch.where(decided, fix_values.to(sig.dtype),
                               torch.full_like(sig, -1.0))
         else:
-            vec = torch.where(sig > 1.0 - margins, 1.0,
-                              torch.where(sig < margins, 0.0, -1.0)).float()
-        state = lp.apply_fix(state, prob, vec, cfg)
+            vec = _fix_vec(sig, m)
+        if grid and pcfg.traj_fix_thr > 0:
+            # trajectory-extremity fixing: on the unconstrained grid QP a
+            # pixel far from 0.5 fixes to round(x); never on LPs, where it
+            # breaks feasibility (the JAX package's l2f.py:218-232)
+            ext = ((state.x - 0.5).abs() > pcfg.traj_fix_thr) & prob.mask
+            if pcfg.traj_fix_windows > 0 and \
+                    state.it > pcfg.traj_fix_windows * ws:
+                ext = torch.zeros_like(ext)
+            xval = (state.x > 0.5).to(state.x.dtype)
+            if pcfg.traj_fix_only:
+                vec = torch.where(ext, xval, torch.full_like(xval, -1.0))
+            else:
+                vec = torch.where((vec < 0) & ext, xval, vec)
+        state = core.apply_fix(state, prob, vec, cfg)
     return state
+
+
+def _qp_policy_window(state, prob, score, cfg, pcfg, ws, margins):
+    """One [grid solver window -> policy -> fix] round; returns the
+    state, the batch's largest free count and whether all are done
+    (tensors, read by the caller)."""
+    state, traj = qp.solve_window(state, prob, cfg, ws, record=True)
+    sig = score(traj.reshape(-1, ws)).reshape(state.x.shape)
+    if pcfg.boundary_gate > 0:
+        margins = qp_boundary_margins(state.x, prob.mask, margins, pcfg)
+    state = qp.apply_fix(state, prob, _fix_vec(sig, margins), cfg)
+    return state, state.free.sum((-2, -1)).max(), state.done.all()
+
+
+def _flat_policy_window(gstate, gprob, score, cfg, ws, margins):
+    """The same round on the compacted flat problem (``core.general``)."""
+    gstate, traj = general.solve_window(gstate, gprob, cfg, ws, record=True)
+    sig = score(traj.reshape(-1, ws)).reshape(gstate.x.shape)
+    gstate = general.apply_fix(gstate, gprob, _fix_vec(sig, margins), cfg)
+    return gstate, gstate.free.sum(-1).max(), gstate.done.all()
+
+
+def _persist_fix_snapshot(gstate, idx, free_full, fixed_full):
+    """Scatter the flat problem's current fixing state into the
+    full-grid snapshot.  Must run before every re-compaction: slots
+    fixed inside the flat problem may not be selected into the smaller
+    bucket, and the final reassembly would otherwise fall back to the
+    stale snapshot and silently zero their fixed values (the bug the
+    JAX package's 1e5-px A/B found, its l2f.py:288-293)."""
+    B = idx.shape[0]
+    shp = free_full.shape
+    free2 = free_full.reshape(B, -1).scatter(1, idx, gstate.free)
+    fixed2 = fixed_full.reshape(B, -1).scatter(
+        1, idx, gstate.fixed_val.to(fixed_full.dtype))
+    return free2.reshape(shp), fixed2.reshape(shp)
+
+
+def _qp_reassemble(gstate, idx, free_full, fixed_full, state0, prob):
+    """Scatter the compacted flat state back into a full-grid
+    ``QpState`` (the drop-in return value of ``l2f_solve``)."""
+    B, H, W = free_full.shape
+    n = H * W
+    dt = gstate.x.dtype
+    zeros = torch.zeros((B, n), dtype=dt, device=idx.device)
+
+    def scat(vec_c, base_flat):
+        return base_flat.scatter(1, idx, vec_c.to(base_flat.dtype)
+                                 ).reshape(B, H, W)
+
+    free_new = scat(gstate.free, torch.zeros((B, n), dtype=torch.bool,
+                                             device=idx.device))
+    fixed_new = scat(gstate.fixed_val, fixed_full.reshape(B, n))
+    b_eff = prob.b + 2.0 * prob.stencil.a_matvec((~free_new).to(dt)
+                                                 * fixed_new)
+    return state0.replace(
+        x=scat(gstate.x, zeros), y1=scat(gstate.y1, zeros),
+        y2=scat(gstate.y2, zeros), z1=scat(gstate.z1, zeros),
+        z2=scat(gstate.z2, zeros),
+        free=free_new, fixed_val=fixed_new, b_eff=b_eff,
+        obj_ring=gstate.obj_ring, obj_count=gstate.obj_count,
+        it=gstate.it, done=gstate.done,
+        cur_obj=gstate.cur_obj, best_bin_obj=gstate.best_bin_obj,
+        best_sol=scat(gstate.best_sol, zeros),
+        x_prev=scat(gstate.x_prev, zeros),
+        fix_count=scat(gstate.fix_count.to(torch.int32),
+                       torch.zeros((B, n), dtype=torch.int32,
+                                   device=idx.device)))
+
+
+#: the policy flags ``l2f_solve_compact_qp`` ignores, as the JAX package's
+#: does (they act in ``l2f_solve``'s grid branch only)
+_TRAJ_FLAGS = ("traj_fix_thr", "traj_fix_only", "traj_fix_windows")
+
+
+def l2f_solve_compact_qp(prob: qp.QpProblem, model: nn.Module,
+                         cfg: SolverConfig, pcfg: PolicyConfig,
+                         ws: int = 10, max_iter: Optional[int] = None,
+                         min_bucket: int = 1024, recompact: bool = True,
+                         row_chunk: int = 8192):
+    """Segmentation l2f solve with physical compaction between windows
+    (the reference's Ma/Mb shrink, Seg LPboxADMMsolver.cpp:1048-1057):
+
+    1. window 1 runs on the (B, H, W) grid (scoring, boundary gate,
+       fixing);
+    2. the free pixels are gathered into a flat power-of-two bucket of
+       at least ``min_bucket`` with a 9-nnz-per-row SparseEll A
+       (``core.qp.compact``) -- one host read decides the bucket;
+    3. later windows run on the compacted problem through
+       ``core.general`` (the same update math), re-compacted
+       (``compact_sparse``) when the free count halves again, the
+       fixing snapshot persisted first;
+    4. the final state is scattered back into a full-grid ``QpState``,
+       so reporting (``qp.select_solution``, ``l2f_metrics_qp``) is
+       unchanged.
+
+    The boundary gate applies to the grid window only (the flat problem
+    has no grid to read the boundary from), and the ``traj_fix_*`` flags
+    are ignored, as in the JAX package (a warning says so)."""
+    given = [f for f in _TRAJ_FLAGS if getattr(pcfg, f)]
+    if given:
+        warnings.warn(f"l2f_solve_compact_qp ignores {', '.join(given)} "
+                      "(trajectory-extremity fixing acts in l2f_solve's "
+                      "masked grid path only)", stacklevel=2)
+    if max_iter is None:
+        max_iter = cfg.max_iters
+    H, W = prob.grid
+    n = H * W
+    windows = max(1, max_iter // ws)
+    score = _scorer(model, pcfg, prob.device, row_chunk)
+    margins = _grid_margins(prob, pcfg)
+    state = qp.init_state(prob, cfg)
+    state, max_free, all_done = _qp_policy_window(state, prob, score, cfg,
+                                                  pcfg, ws, margins)
+    if windows == 1 or bool(all_done):
+        return state
+    n_b = _bucket(int(max_free), min_bucket, n)
+    if n_b >= n:
+        # nothing to gain: stay on the grid
+        for _ in range(windows - 1):
+            state, _, all_done = _qp_policy_window(state, prob, score, cfg,
+                                                   pcfg, ws, margins)
+            if bool(all_done):
+                break
+        return state
+
+    state0 = state
+    free_full, fixed_full = state.free, state.fixed_val
+    gstate, gprob, idx = qp.compact(state, prob, cfg, n_b)
+    margins_c = torch.gather(margins.reshape(prob.batch, -1), 1, idx)
+    for w in range(1, windows):
+        gstate, max_free, all_done = _flat_policy_window(
+            gstate, gprob, score, cfg, ws, margins_c)
+        if bool(all_done):
+            break
+        if recompact and w < windows - 1:
+            n_b2 = _bucket(int(max_free), min_bucket, n_b)
+            if n_b2 <= n_b // 2:
+                # persist the fixes made inside the current flat problem:
+                # their slots may be dropped by the smaller bucket
+                free_full, fixed_full = _persist_fix_snapshot(
+                    gstate, idx, free_full, fixed_full)
+                gstate, gprob, idx2 = general.compact_sparse(gstate, gprob,
+                                                             n_b2)
+                idx = torch.gather(idx, 1, idx2)
+                margins_c = torch.gather(margins_c, 1, idx2)
+                n_b = n_b2
+    return _qp_reassemble(gstate, idx, free_full, fixed_full, state0, prob)
+
+
+def qp_refine_boundary(state: qp.QpState, prob: qp.QpProblem,
+                       cfg: SolverConfig, iters: int = 10, rounds: int = 1,
+                       band: int = 1) -> qp.QpState:
+    """Post-fix refinement of the seg l2f solve: re-free the fixed
+    pixels on the current solution's boundary (an 8-neighbour of another
+    label), dilated to ``band`` hops, with fresh duals at their fixed
+    value, and run ``iters`` more iterations; ``rounds`` repeats the
+    cycle on the moved boundary.  Interior pixels stay fixed, so this
+    costs a few masked iterations, not a re-solve."""
+    dt = state.x.dtype
+    maskb = prob.mask.to(torch.bool)
+    for _ in range(rounds):
+        sol = qp.solution(state) * prob.mask.to(dt)
+        differs = _label_band(sol, maskb, band, mask_first=False)
+        refree = (~state.free) & maskb & differs
+        free2 = state.free | refree
+        fixed2 = torch.where(refree, torch.zeros_like(state.fixed_val),
+                             state.fixed_val)
+        b_eff2 = prob.b + 2.0 * prob.stencil.a_matvec((~free2).to(dt)
+                                                      * fixed2)
+        fv = state.fixed_val
+        z0 = lambda z: torch.where(refree, torch.zeros_like(z), z)
+        state = state.replace(
+            x=torch.where(refree, fv, state.x),
+            y1=torch.where(refree, fv, state.y1),
+            y2=torch.where(refree, fv, state.y2),
+            z1=z0(state.z1), z2=z0(state.z2),
+            free=free2, fixed_val=fixed2, b_eff=b_eff2,
+            done=torch.zeros_like(state.done))
+        state, _ = qp.solve_window(state, prob, cfg, iters, record=False)
+    return state
+
+
+def l2f_metrics_qp(state: qp.QpState, prob: qp.QpProblem,
+                   oracle_energy: torch.Tensor,
+                   labels: Optional[torch.Tensor] = None,
+                   repair_sweeps: int = 0, pair_sweeps: int = 0) -> dict:
+    """Segmentation evaluation (Seg trainer.py:745-771): energy gap and,
+    with the oracle's ``labels`` (B, H, W), per-pixel agreement and fix
+    errors.  The energy is selection-reported and polished as the
+    oracle's (pass the oracle's ``repair_sweeps``/``pair_sweeps``)."""
+    sol, energy = qp.select_solution(state, prob, repair_sweeps=repair_sweeps,
+                                     pair_sweeps=pair_sweeps)
+    fixed = (~state.free) & prob.mask
+    out = {
+        "energy": energy,
+        "energy_gap": (energy - oracle_energy) / oracle_energy.abs(),
+        "iterations": state.it,
+        "n_fixed": fixed.sum((-2, -1)),
+    }
+    if labels is not None:
+        msk = prob.mask
+        out["px_1_to_0"] = ((labels == 1) & (sol == 0) & msk).sum((-2, -1))
+        out["px_0_to_1"] = ((labels == 0) & (sol == 1) & msk).sum((-2, -1))
+        out["px_agree"] = ((sol == labels) & msk).sum((-2, -1))
+        out["fix_errors"] = (fixed & (state.fixed_val != labels)
+                             ).sum((-2, -1))
+    return out

@@ -55,8 +55,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "(PolicyConfig.damage_gate; 0 = global "
                         "threshold)")
     p.add_argument("-boundary_gate", type=float, default=0.0,
-                   help="seg-only risk calibration "
-                        "(PolicyConfig.boundary_gate)")
+                   help="seg-only risk calibration: scale the fix "
+                        "margin by (1-gate) for pixels within "
+                        "-boundary_band hops of the current label "
+                        "boundary (PolicyConfig.boundary_gate; 1 = never "
+                        "fix inside the band)")
     p.add_argument("-boundary_band", type=int, default=2,
                    help="8-neighbour radius of the protected boundary "
                         "band (PolicyConfig.boundary_band)")

@@ -509,3 +509,55 @@ def test_l2f_solve_struct_scores_through_k2(struct_pair):
         policy_windows=3, cap=4000)
     assert fused_policy.LAUNCHES == k2 + 3
     assert out["infeasible"] == 0 and out["decided"] > 0
+
+
+# --- segmentation (since the seg slice) --------------------------------------
+
+def _seg_pair(cuda, H=24, W=32):
+    """The same two synthetic images (the smoke's recipe) on the CPU and
+    on the card."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from lpbox_admm_tpu_torch.adapters import segmentation as seg
+    ims = chip_smoke.seg_images(3, 2, H, W)
+    return (seg.make_problem(ims, device="cpu"),
+            seg.make_problem(ims, device=cuda))
+
+
+def test_qp_window_on_card_matches_cpu(cuda):
+    """20 grid QP iterations on the card against the CPU: x and its
+    copies to 1e-3 absolute, the duals to 1e-3 of gamma*rho."""
+    from lpbox_admm_tpu_torch.config import SEG_CONFIG
+    from lpbox_admm_tpu_torch.core import qp
+    pc, pg = _seg_pair(cuda)
+    sc, _ = qp.solve_window(qp.init_state(pc, SEG_CONFIG), pc, SEG_CONFIG,
+                            20, record=False)
+    sg, _ = qp.solve_window(qp.init_state(pg, SEG_CONFIG), pg, SEG_CONFIG,
+                            20, record=False)
+    unit = gamma_at(19, SEG_CONFIG) * rho_at(19, SEG_CONFIG)
+    for f in ("x", "y1", "y2", "best_sol"):
+        assert (getattr(sg, f).cpu() - getattr(sc, f)).abs().max() <= 1e-3, f
+    for f in ("z1", "z2"):
+        assert (getattr(sg, f).cpu() - getattr(sc, f)).abs().max() \
+            <= 1e-3 * unit, f
+
+
+def test_seg_l2f_scores_with_k2_at_stride_1(cuda):
+    """The masked and the compacting seg l2f on the card launch K2 on
+    the sliding windows and fix as the CPU's module forward does."""
+    from lpbox_admm_tpu_torch.config import SEG_CONFIG
+    ckpt = str(Path(CKPT).parents[2] / "seg_mha" / "checkpoint"
+               / "best_checkpoint.npz")
+    pcfg = PolicyConfig(node_size=5, chunk_dim=5, window_mode="sliding")
+    pc, pg = _seg_pair(cuda)
+    mc = load_policy(ckpt, node_size=5, chunk_dim=5, device="cpu")
+    mg = load_policy(ckpt, node_size=5, chunk_dim=5, device=cuda)
+    for solve in (l2f.l2f_solve, l2f.l2f_solve_compact_qp):
+        fused_policy.LAUNCHES = 0
+        sg = solve(pg, mg, SEG_CONFIG, pcfg, ws=10, max_iter=30)
+        assert fused_policy.LAUNCHES > 0
+        sc = solve(pc, mc, SEG_CONFIG, pcfg, ws=10, max_iter=30)
+        fixed_g = (~sg.free & pg.mask).sum().item()
+        fixed_c = (~sc.free & pc.mask).sum().item()
+        assert fixed_c > 0 and abs(fixed_g - fixed_c) <= 0.02 * fixed_c

@@ -59,7 +59,8 @@ assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
 assert "lpbox_admm_tpu_torch.scripts.probe_dot" in sys.modules
 for name in ("ops.sparse", "ops.mxu_sparse", "ops.ca_sparse",
              "ops.struct_ginv", "train.l2f_struct", "scripts.mega_l2f",
-             "scripts.auto_rule"):
+             "scripts.auto_rule", "ops.stencil", "core.qp", "core.general",
+             "adapters.segmentation", "experiments.run_seg"):
     assert "lpbox_admm_tpu_torch." + name in sys.modules, name
 print("imports-ok")
 """
@@ -117,6 +118,72 @@ def test_large_rung_entry_points_default_to_cuda():
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
             call()
+
+
+def test_segmentation_entry_points_default_to_cuda(tmp_path):
+    """The segmentation and general-solver constructors and the run_seg
+    entry point run on the card unless asked for the CPU: without a card they
+    raise instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from lpbox_admm_tpu_torch.adapters import segmentation as seg
+    from lpbox_admm_tpu_torch.core import general
+    from lpbox_admm_tpu_torch.experiments import run_seg
+    im = np.random.RandomState(0).rand(6, 8) * 0.9
+    np.save(tmp_path / "0.npy", im)
+    A, b = np.eye(3)[None], np.ones((1, 3))
+    r, c = np.arange(3), np.arange(3)
+    calls = [lambda: seg.make_problem([im]),
+             lambda: seg.load_problem([str(tmp_path / "0.npy")]),
+             lambda: general.make_general(A=A, b=b),
+             lambda: general.make_sparse_general(b, A_coo=[(r, c, b[0])]),
+             lambda: general.make_grid_general(np.zeros((1, 8, 2, 2)),
+                                               np.ones((1, 4))),
+             lambda: run_seg.main(["-phase", "solve", "-image_dir",
+                                   str(tmp_path), "-n", "1", "-result_dir",
+                                   str(tmp_path / "out")], log=print)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert seg.make_problem([im], device="cpu").b.device.type == "cpu"
+
+
+PIL_BLOCKED = """
+import importlib.abc, sys
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "PIL":
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Blocker())
+import numpy as np
+from lpbox_admm_tpu_torch.adapters import segmentation as seg
+from lpbox_admm_tpu_torch.experiments import run_seg
+im = np.random.RandomState(0).rand(6, 8) * 0.9
+prob = seg.make_problem([im], device="cpu")
+np.save({npy!r}, im)
+assert (seg.load_image({npy!r}) == im).all()
+for call in (lambda: seg.load_image("x.png"),
+             lambda: seg.save_img(im, im > 0, "x.png")):
+    try:
+        call()
+    except ImportError as e:
+        assert "PIL" in str(e), e
+    else:
+        raise AssertionError("no ImportError")
+assert "PIL" not in sys.modules
+print("pil-free-ok")
+"""
+
+
+def test_segmentation_adapter_imports_without_pil(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-c", PIL_BLOCKED.format(
+            npy=str(tmp_path / "im.npy"))],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert res.returncode == 0, res.stderr
+    assert "pil-free-ok" in res.stdout
 
 
 def test_kernel_wrappers_refuse_other_devices():

@@ -164,3 +164,73 @@ def tf32_rna(x):
     dropped range to the magnitude, then clear it)."""
     b = np.ascontiguousarray(x, np.float32).view(np.uint32)
     return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+# --- segmentation -----------------------------------------------------------
+
+SEG_CKPT = str(ROOT / "checkpoints" / "seg_mha" / "checkpoint"
+               / "best_checkpoint.npz")
+
+
+def seg_image(rng, H, W):
+    """A synthetic segmentation image of the smoke's recipe: a smoothed
+    Gaussian random field (sigma H/12) scaled to [0, 1], plus noise of
+    0.05, clipped, quantised to 8 bits, divided by 263 as ``load_image``
+    does.  Piecewise-constant images are too easy (their l2f gap is 0)."""
+    from scipy.ndimage import gaussian_filter
+    f = gaussian_filter(rng.randn(H, W), sigma=H / 12)
+    f = (f - f.min()) / (f.max() - f.min())
+    f = np.clip(f + 0.05 * rng.randn(H, W), 0.0, 1.0)
+    return np.round(255 * f) / 263.0
+
+
+def seg_images(seed, count, H, W):
+    rng = np.random.RandomState(seed)
+    return [seg_image(rng, H, W) for _ in range(count)]
+
+
+def seg_pcfg(package, **kw):
+    """The seg policy's PolicyConfig (5 tokens of 5, sliding) of either
+    package's config module."""
+    return package.PolicyConfig(node_size=5, chunk_dim=5,
+                                window_mode="sliding", **kw)
+
+
+def seg_referee(images, ws=10, max_iter=30, repair=8, pair=4):
+    """The JAX package's CPU readings that ``chip_smoke.py``'s seg phase
+    holds the card against: the plain solve's reported energies
+    (``build_dataset_qp``, record 50, polished as ``run_seg -phase
+    test`` polishes) and its iterations, and the masked ``l2f_solve``
+    with ``seg_mha`` at the test protocol: mean energy gap, pixels fixed
+    and fix errors per image."""
+    from lpbox_admm_tpu import config as jconfig
+    from lpbox_admm_tpu.adapters import segmentation as jseg
+    from lpbox_admm_tpu.models.policy import build_policy
+    from lpbox_admm_tpu.train import imitation as jim
+    from lpbox_admm_tpu.train import l2f as jl2f
+    cfg = jconfig.SEG_CONFIG
+    prob = jseg.make_problem(images)
+    ds = jim.build_dataset_qp(prob, cfg, record_iters=5 * ws,
+                              repair_sweeps=repair, pair_sweeps=pair)
+    state = jl2f.l2f_solve(prob, build_policy("mha"),
+                           flax_variables_from_npz(SEG_CKPT), cfg,
+                           seg_pcfg(jconfig), ws=ws, max_iter=max_iter)
+    m = jl2f.l2f_metrics_qp(state, prob, ds.oracle_obj,
+                            ds.labels.reshape(prob.b.shape),
+                            repair_sweeps=repair, pair_sweeps=pair)
+    return {"plain_energy": [float(v) for v in np.asarray(ds.oracle_obj)],
+            "plain_iters": int(ds.oracle_iters),
+            "l2f_gap_mean": float(np.mean(np.asarray(m["energy_gap"]))),
+            "l2f_fixed": [int(v) for v in np.asarray(m["n_fixed"])],
+            "l2f_fix_errors": [int(v) for v in np.asarray(m["fix_errors"])]}
+
+
+if __name__ == "__main__":
+    # prints the referee constants of chip_smoke.py's seg phase:
+    #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_port_util.py
+    import json
+    import sys
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    print(json.dumps(seg_referee(chip_smoke.seg_images(
+        chip_smoke.SEG_SEED, chip_smoke.SEG_BATCH, *chip_smoke.SEG_GRID))))
