@@ -62,14 +62,33 @@ solver (``core.general``); one ``run_seg -phase train`` epoch from
 Then the very-large rung of the reference's instance ladder: its
 canonical (1000 items, 100 000 bids) instance, generated by the port's
 ``generate_cauction(return_coo=True)`` in a worker process while the
-earlier phases run, as a struct problem with the Schur G^{-1}
+earlier phases run (as the 32 xl instances are, in a second worker), as
+a struct problem with the Schur G^{-1}
 (``make_struct_problem``, ``build_struct_ginv``); the struct products and
 the Schur apply against float64 on the host; the plain struct solve
 through ``solve_auto`` (rho_change_step 12, cap 6700) and a profile of
 its iteration; ``l2f_solve_struct`` with ``ca500_mha``, K2 scoring every
 policy window on 100 000 rows, held against the float64 CPU oracle of
 ``bench_cache/cpu_oracle_1000_100000.json``; K2 against its plain
-version on that window's rows.
+version on that window's rows; ``mega_l2f --phase labels`` and ``--phase
+train`` (one epoch from ``ca500_mha``, the holdout proxy scored by K2) at
+a (100, 1000) rung, the best checkpoint read back into K2.
+
+Then the sparse attack (the paper's third workload): 8 synthetic 3 x 32
+x 32 images (``attack_images``: smoothed Gaussian random fields,
+quantised to 8 bits, with pixels at exactly 0 and 1), the shipped victim
+``checkpoints/cifar_victim.npz``, its own labels and the reference's
+targets, SLIC masks of 150 segments, the full ``ATTACK_CONFIG`` (k 200,
+2000 epsilon and 2000 G iterations); at lambda1 10, the CNN loss's
+gradients in epsilon and G and 20 epsilon and 20 G iterations on the
+card against the port on the CPU; one ``attack_single`` plain at
+``init_lambda1`` and one l2f at lambda1 10 (the shipped ``attack_mha``,
+K2 on B * 3072 rows of 50, 10 tokens of 5) against the JAX package's
+CPU readings (``ATTACK_REFEREE``), with the policy's scores inverted as a
+planted fault; K2 against its plain version on that run's own rows;
+the l2f ``attack_with_search`` with the L0 repair (its rounds cut from
+6 to 2 to fit the deadline) and its output contract; a profile of an
+epsilon and a G iteration.
 
 K1 takes CA's 0/1 E as an exact one-byte copy: resident in shared
 memory at CA-500 (the ``int8-resident`` route of the plain and the l2f
@@ -97,7 +116,7 @@ plain versions on the first block of 8, the xl solve, a packed-symmetric
 window, the xl l2f solve, K2 and K1 against their plain versions on the
 operands the xl l2f solve gave them (its first policy window's 131 072
 trajectory rows; the tail's start state in its compacted bucket, with a
-planted fault), the mega rung, the seg phase, kernel timings (K1 also at that bucket; K2 at 65 536
+planted fault), the mega rung, the seg phase, the attack phase, kernel timings (K1 also at that bucket; K2 at 65 536
 rows split into its two kernels by the profiler, with its closed-form L2
 weight bytes and the card's mma.sync TF32 rate from
 ``scripts/tc_rate.py``), and last the train phase's time split under the
@@ -123,15 +142,23 @@ mean by more than 0.5%, an image by more than 2%), a masked seg l2f mean
 gap more than 1 point from the referee's or pixels fixed more than 5%
 from its, a planted seg fault within that gap bound, a general solve off
 its brute-force bound, or a seg training epoch with a non-finite loss or
-a checkpoint whose K2 scores differ from the trained module's.  Prints one progress line per phase, a JSON ``kernels`` line,
+a checkpoint whose K2 scores differ from the trained module's, a mega
+training epoch with a non-finite proxy, the victim's labels on the card
+other than the JAX package's, CNN gradients more than 1e-5 (relative)
+or 20 epsilon or G iterations more than 1e-3 off the CPU, a CNN term
+that moves G by less than ten times that bound, attack results off the referee (success on more than one image, or
+mean L0 by more than 0.05 k), a planted attack fault within those
+bounds, or a search result that breaks the output contract (G binary, L0
+= sum G <= 1.5 k, L-inf <= 1).  Prints one progress line per phase, a JSON ``kernels`` line,
 the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``; the cold run takes about 420 s of the 540 s budget.
+{...}}``.
 
 Needs a CUDA device: without one it exits non-zero at once.  It imports
 only the port, torch, numpy, scipy and the standard library, and writes
 nothing but the kernel build directory ``lpbox_admm_tpu_torch/_build``,
-the train phase's checkpoints and the mega instance in temporary
-directories it removes; it stops the generation worker before it exits.
+the train phases' checkpoints and caches and the generated instances in
+temporary directories it removes; it stops the generation workers before
+it exits.
 """
 
 import faulthandler
@@ -246,6 +273,55 @@ SEG_REFEREE = {
 SEG_MEAN_TOL, SEG_IMAGE_TOL, SEG_GAP_PP, SEG_FIX_TOL = 0.005, 0.02, 0.01, 0.05
 SEG_BUDGET_S = 90
 
+# The sparse attack (the paper's third workload): ATTACK_BATCH synthetic
+# 3 x 32 x 32 images of attack_images' recipe, the shipped victim
+# (checkpoints/cifar_victim.npz), its own predictions as labels and the
+# reference's targets, SLIC with ATTACK_SEGMENTS segments and the full
+# ATTACK_CONFIG (k 200, maxIter_e 2000, maxIter_g 2000, lambda1 1e-3);
+# the l2f G update scores with the shipped attack_mha (node 10 x chunk 5,
+# ws 50: K2 on B*3072 rows of 50).
+ATTACK_SEED, ATTACK_BATCH, ATTACK_SEGMENTS = 0, 8, 150
+# the phase's deadline: its eager iterations are host-bound, and the
+# host's speed varies by 30% between calls (PERF.md section 5)
+ATTACK_BUDGET_S = 120
+ATTACK_CKPT = os.path.join(ROOT, "checkpoints", "attack_mha", "checkpoint",
+                           "best_checkpoint.npz")
+ATTACK_VICTIM = os.path.join(ROOT, "checkpoints", "cifar_victim.npz")
+# One attack_single plain at init_lambda1 and one l2f at lambda1 10
+# ("l2f_at"), by the JAX package on the CPU on the same images and
+# weights (`JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/torch_port_util.py attack`): the victim's labels, the targets,
+# and per image success and L0.  The card must give the same labels;
+# success per image equal for all but ATTACK_SUCCESS_SLACK images; mean L0
+# within ATTACK_L0_TOL * k of the referee's.  The l2f run is at lambda1
+# 10 because at init_lambda1 the CNN term is too weak for the result to
+# depend on the policy (every entry ends below 0.5 whatever the scores,
+# L0 0 in both packages); there the planted fault -- the policy's scores
+# inverted (1 - s), as in the seg phase -- must cross the success slack
+# or the L0 bound.
+ATTACK_REFEREE = {
+    "labels": [8, 6, 7, 6, 6, 7, 6, 6], "targets": [6, 4, 5, 4, 4, 5, 4, 4],
+    "plain": {"success": [False] * 8,
+              "L0": [197, 212, 214, 200, 199, 211, 206, 210]},
+    "l2f_at": {"lambda1": 10.0, "success": [True] * 8,
+               "L0": [307, 83, 87, 321, 246, 135, 62, 267]}}
+ATTACK_SUCCESS_SLACK, ATTACK_L0_TOL = 1, 0.05
+# The CNN oracle on the card against the port on the CPU, at lambda1 10
+# (where the CNN term moves G; at init_lambda1 it moves it by less than
+# the bound): ATTACK_WINDOW epsilon and G iterations held to
+# ATTACK_WINDOW_TOL (the bound of every <= 20-iteration comparison of a
+# chaotic iteration); the loss gradient at the same inputs to
+# ATTACK_GRAD_TOL relative to its largest entry (float32 convolutions
+# summed in another order); the CNN term must move G over the window by
+# ATTACK_REACH times ATTACK_WINDOW_TOL or more.
+ATTACK_WINDOW, ATTACK_WINDOW_LAMBDA = 20, 10.0
+ATTACK_WINDOW_TOL, ATTACK_GRAD_TOL, ATTACK_REACH = 1e-3, 1e-5, 10
+# the full search's rounds: ATTACK_CONFIG's 6 cut to 2 to fit the
+# phase's deadline (an eager round with the repair is 5150 iterations,
+# 13-18 s on an H100 80GB HBM3 at 700 W, PERF.md section 5); the second
+# round runs the per-image lambda1 update and the merge of rounds.
+ATTACK_SEARCH_ROUNDS = 2
+
 T_START = time.perf_counter()
 
 
@@ -267,6 +343,25 @@ def seg_images(seed, count, H, W):
     import numpy as np
     rng = np.random.RandomState(seed)
     return [seg_image(rng, H, W) for _ in range(count)]
+
+
+def attack_images(seed, count, H=32, W=32):
+    """Synthetic attack images: per channel a Gaussian random field
+    smoothed at sigma H/8, scaled to [0, 1], plus noise of 0.05, clipped,
+    quantised to 8 bits and divided by 255 as the reference's loader
+    does, so that every image has pixels at exactly 0 and 1 (the tests
+    import this function)."""
+    import numpy as np
+    from scipy.ndimage import gaussian_filter
+    rng = np.random.RandomState(seed)
+    out = np.empty((count, 3, H, W), np.float32)
+    for i in range(count):
+        for c in range(3):
+            f = gaussian_filter(rng.randn(H, W), sigma=H / 8)
+            f = (f - f.min()) / (f.max() - f.min())
+            f = np.clip(f + 0.05 * rng.randn(H, W), 0.0, 1.0)
+            out[i, c] = np.round(255 * f) / 255.0
+    return out
 
 
 def log(msg):
@@ -1452,6 +1547,10 @@ def lp_options_phase(prob, st_plain, cfg, lp, fused_lp):
 MEGA_ITEMS, MEGA_BIDS = 1000, 100000
 MEGA_SHAPE, MEGA_NNZ = (19768, 100000), 559953
 MEGA_RHO_STEP, MEGA_CAP = 12, 6700
+# mega_l2f's train phase at a small rung: labels for two seeds (the
+# rounding after 300 recorded iterations), one epoch from ca500_mha on
+# the first, the second held out
+MEGA_TRAIN_RUNG, MEGA_TRAIN_SEEDS = "100x1000", "1,2"
 MEGA_POLICY_WINDOWS = 3
 MEGA_GAP = 0.01                # l2f objective against the oracle
 # struct products and the Schur apply against float64 on the host: 1e-5
@@ -1468,27 +1567,42 @@ def _generate_mega(path):
     np.savez(path, p=p, r=r, c=c, v=v, s=np.asarray(s))
 
 
-class MegaInstance:
-    """The mega instance generated in a worker process (about a minute of
-    host numpy) while the card runs the earlier phases; ``result()``
-    waits for it.  ``close()`` stops the worker and removes its file."""
+def _generate_xl(path):
+    """The 32 xl instances, each C (0/1) stored as bytes."""
+    import numpy as np
+    sys.path.insert(0, ROOT)
+    from lpbox_admm_tpu_torch.adapters import ca
+    rng = np.random.RandomState(XL_SEED)
+    arrays = {}
+    for i in range(XL_BATCH):
+        p, C = ca.generate_cauction(rng, n_items=XL_ITEMS, n_bids=XL_BIDS)
+        arrays[f"p{i}"], arrays[f"C{i}"] = p, C.astype(np.uint8)
+    np.savez(path, **arrays)
 
-    def __init__(self):
+
+class HostWorker:
+    """Host numpy work (instance generation) in a spawned worker process
+    while the card runs the earlier phases: ``target(path)`` writes an
+    ``.npz``; ``result()`` waits for it and returns its arrays.
+    ``close()`` stops the worker and removes its file."""
+
+    def __init__(self, target, name):
         import multiprocessing
         import tempfile
-        self.dir = tempfile.mkdtemp(prefix="chip_smoke_mega_")
-        self.path = os.path.join(self.dir, "mega.npz")
+        self.name = name
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        self.path = os.path.join(self.dir, f"{name}.npz")
         self.proc = multiprocessing.get_context("spawn").Process(
-            target=_generate_mega, args=(self.path,), daemon=True)
+            target=target, args=(self.path,), daemon=True)
         self.proc.start()
 
     def result(self):
         import numpy as np
         self.proc.join()
-        require(self.proc.exitcode == 0,
-                f"mega generation worker exit code {self.proc.exitcode}")
+        require(self.proc.exitcode == 0, f"{self.name} generation worker "
+                f"exit code {self.proc.exitcode}")
         with np.load(self.path) as z:
-            return (z["p"], (z["r"], z["c"], z["v"], tuple(z["s"])))
+            return {k: z[k] for k in z.files}
 
     def close(self):
         import shutil
@@ -1496,6 +1610,22 @@ class MegaInstance:
             self.proc.terminate()
         self.proc.join()
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def mega_instance(worker):
+    """The canonical mega instance ``(prices, (rows, cols, vals, shape))``
+    from its worker."""
+    z = worker.result()
+    return (z["p"], (z["r"], z["c"], z["v"], tuple(z["s"])))
+
+
+def xl_instances(worker):
+    """The xl instances ``[(prices, C)]`` from their worker, C in the
+    generator's float64 (its 0/1 entries are exact in a byte)."""
+    import numpy as np
+    z = worker.result()
+    return [(z[f"p{i}"], z[f"C{i}"].astype(np.float64))
+            for i in range(XL_BATCH)]
 
 
 def mega_checks(prob, ginv, inst, row_map, struct_ginv):
@@ -1528,22 +1658,21 @@ def mega_checks(prob, ginv, inst, row_map, struct_ginv):
     return errs
 
 
-def struct_split(prob, cfg, ginv, lp, W=20):
-    """W iterations of the plain struct solve from its start: the wall
-    per iteration (host clock, synchronised), then the same under the
-    profiler for the card's busy time and kernels per iteration; the
-    idle share is 1 - busy / wall."""
+def iteration_split(run, W=20):
+    """``run(n)`` runs n iterations from one fixed start state: W of them
+    timed on the host clock (synchronised) for the wall per iteration,
+    then W under the profiler for the card's busy time and kernels per
+    iteration; the idle share is 1 - busy / wall."""
     import torch
-    s0 = lp.init_state(prob, cfg, ginv=ginv)
-    lp.solve_window(s0, prob, cfg, 2, record=False, skip_cvg_at=0)
+    run(2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lp.solve_window(s0, prob, cfg, W, record=False, skip_cvg_at=0)
+    run(W)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / W
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        lp.solve_window(s0, prob, cfg, W, record=False, skip_cvg_at=0)
+        run(W)
         torch.cuda.synchronize()
     evs = prof.key_averages()
     busy = sum(e.self_device_time_total for e in evs) / 1e3 / W
@@ -1551,6 +1680,13 @@ def struct_split(prob, cfg, ginv, lp, W=20):
     return {"wall_ms_per_it": wall, "device_busy_ms_per_it": busy,
             "device_kernels_per_it": kernels,
             "device_idle_share": 1.0 - busy / wall}
+
+
+def struct_split(prob, cfg, ginv, lp, W=20):
+    """W iterations of the plain struct solve from its start."""
+    s0 = lp.init_state(prob, cfg, ginv=ginv)
+    return iteration_split(lambda n: lp.solve_window(
+        s0, prob, cfg, n, record=False, skip_cvg_at=0), W)
 
 
 def mega_phase(mega_inst, model, packed, pcfg, lp, fused_policy, l2f):
@@ -1568,7 +1704,7 @@ def mega_phase(mega_inst, model, packed, pcfg, lp, fused_policy, l2f):
     from lpbox_admm_tpu_torch.train import l2f_struct
     out = {}
     t0 = time.perf_counter()
-    inst = mega_inst.result()
+    inst = mega_instance(mega_inst)
     _, (r, c, v, shape) = inst
     out["gen_wait_s"] = time.perf_counter() - t0
     log(f"  instance: C {tuple(shape)}, {len(r)} nonzeros (generated in a "
@@ -1661,6 +1797,58 @@ def mega_phase(mega_inst, model, packed, pcfg, lp, fused_policy, l2f):
     return out, k2, first["rows"]
 
 
+def mega_train_check(fused_policy, l2f):
+    """``mega_l2f --phase labels`` then ``--phase train`` (one epoch, the
+    holdout proxy scored by K2: counts from 0 before it, read after it)
+    at MEGA_TRAIN_RUNG in a temporary cache; the proxy is finite and the
+    best checkpoint, read back through ``load_policy`` into K2, scores
+    as the trained module does within K2_TOL.  Returns the summary and
+    K2's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    from lpbox_admm_tpu_torch.config import PolicyConfig
+    from lpbox_admm_tpu_torch.scripts import mega_l2f
+    from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--rung", MEGA_TRAIN_RUNG, "--seeds", MEGA_TRAIN_SEEDS,
+                  "--cache", tmp]
+        t0 = time.perf_counter()
+        mega_l2f.main(["--phase", "labels", "--cap", "300", "--record",
+                       "300", "--rho-step", "12"] + common)
+        labels_s = time.perf_counter() - t0
+        fused_policy.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = mega_l2f.main(["--phase", "train", "--epochs", "1",
+                             "--init-ckpt", CKPT] + common)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        k2 = fused_policy.LAUNCHES
+        proxy = res["best_proxy"]
+        path = os.path.join(tmp, "mega_mha", "checkpoint",
+                            "best_checkpoint.npz")
+        back = load_policy(path, device="cuda")
+        rows = torch.rand(4096, 100, device="cuda",
+                          generator=torch.Generator("cuda").manual_seed(0))
+        sk = fused_policy.policy_scores_cuda(
+            fused_policy.pack_policy_weights(back), rows, 5)
+        sm = l2f.policy_scores(res["state"].model.eval(), rows,
+                               PolicyConfig(net="mha"))
+        err = (sk - sm).abs().max().item()
+    log(f"  mega train ({MEGA_TRAIN_RUNG}, seeds {MEGA_TRAIN_SEEDS}, the "
+        f"last held out): labels {labels_s:.2f} s, one epoch and the "
+        f"holdout proxy {train_s:.2f} s, loss "
+        f"{res['history'][0]['loss']:.5f}, proxy {proxy:.5f}, K2 launches "
+        f"{k2}; best checkpoint read back into K2: {err:.3e} from the "
+        "trained module")
+    require(np.isfinite(proxy), f"mega train: finite proxy {proxy}")
+    require(k2 >= 3, f"mega train: K2 scored the holdout's windows: {k2}")
+    require(finite(sk) and err <= K2_TOL,
+            f"mega train: K2 of the best checkpoint {err:.3e}")
+    return {"labels_s": labels_s, "train_s": train_s, "proxy": proxy,
+            "loss": res["history"][0]["loss"], "k2_readback_err": err}, k2
+
+
 # --- the segmentation workload ---------------------------------------------
 
 SEG_CKPT = os.path.join(ROOT, "checkpoints", "seg_mha", "checkpoint",
@@ -1672,28 +1860,10 @@ GENERAL_CFG = dict(initial_rho=5.0, learning_fact=1.03, rho_change_step=5,
 
 
 def qp_split(prob, cfg, qp, W=20):
-    """W grid QP iterations from the start: the wall per iteration (host
-    clock, synchronised), then the same under the profiler for the
-    card's busy time and kernels per iteration; idle share 1 - busy /
-    wall (as ``struct_split``)."""
-    import torch
+    """W grid QP iterations from the start."""
     s0 = qp.init_state(prob, cfg)
-    qp.solve_window(s0, prob, cfg, 2, record=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    qp.solve_window(s0, prob, cfg, W, record=False)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / W
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        qp.solve_window(s0, prob, cfg, W, record=False)
-        torch.cuda.synchronize()
-    evs = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in evs) / 1e3 / W
-    kernels = sum(e.count for e in evs if e.self_device_time_total > 0) / W
-    return {"wall_ms_per_it": wall, "device_busy_ms_per_it": busy,
-            "device_kernels_per_it": kernels,
-            "device_idle_share": 1.0 - busy / wall}
+    return iteration_split(lambda n: qp.solve_window(s0, prob, cfg, n,
+                                                     record=False), W)
 
 
 def brute_force(A, b, C=None, d=None, E=None, f=None):
@@ -1825,35 +1995,43 @@ def seg_train_check(images, seg_pcfg, rows, fused_policy, l2f):
             "best_gap": res["best_gap"], "k2_readback_err": err}
 
 
-def k2_seg_timing(fused_policy, packed, op, rows):
-    """K2 at the seg shape (T 5 tokens of C 5, stride 1, ws 10): ms a
-    launch (CUDA events), its plain version, and the bound: 3 TF32
-    passes of its flops over PEAK_TF32_FLOPS against its bytes (rows
-    and scores once, the packed weights once) over PEAK_HBM_BYTES."""
-    R, ws = rows.shape
+def k2_work(packed, rows):
+    """K2's flops (2 x the FMAs of the encoder and the classifier a row)
+    and bytes (rows and scores once, the packed weights once) on
+    ``rows``, and the FMAs a row."""
+    R = rows.shape[0]
     T, E = packed.peb.shape
     C = packed.w_top.shape[0]
     L = packed.wqkv.shape[0]
     F = packed.w1.shape[-1]
-    ms = cuda_ms(lambda: fused_policy.policy_scores_cuda(packed, rows, 1,
-                                                         op), 3)
-    plain_ms = cuda_ms(lambda: fused_policy.policy_scores_plain(
-        packed, rows, 1), 1)
     fma_row = T * C * E + L * (T * E * 3 * E + 2 * T * T * E + T * E * E
                                + 2 * T * E * F) \
         + T * E * 256 + 256 * 128 + 128 * 16 + 16
-    flops = 2.0 * fma_row * R
     nbytes = rows.numel() * 4 + R * 4 + sum(t.numel() * 4 for t in packed)
+    return 2.0 * fma_row * R, nbytes, fma_row
+
+
+def k2_shape_timing(fused_policy, packed, op, rows, stride, what):
+    """K2 at a path's own shape: ms a launch (CUDA events), its plain
+    version, and the bound: 3 TF32 passes of its flops over
+    PEAK_TF32_FLOPS against its bytes over PEAK_HBM_BYTES."""
+    R, ws = rows.shape
+    T = packed.peb.shape[0]
+    C = packed.w_top.shape[0]
+    run = lambda: fused_policy.policy_scores_cuda(packed, rows, stride, op)
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(lambda: fused_policy.policy_scores_plain(
+        packed, rows, stride), 1)
+    flops, nbytes, fma_row = k2_work(packed, rows)
     t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_HBM_BYTES
-    split = kernel_split(lambda: fused_policy.policy_scores_cuda(
-        packed, rows, 1, op), ("policy_encoder_kernel",
+    split = kernel_split(run, ("policy_encoder_kernel",
                                "policy_classifier_kernel"))
-    log(f"  K2 at the seg shape ({R} rows x ws {ws}, {T} tokens of {C}, "
-        f"stride 1): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+    log(f"  K2 at the {what} shape ({R} rows x ws {ws}, {T} tokens of {C} "
+        f"at stride {stride}): {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{max(t_ops, t_bytes) * 1e3:.3f} ms (3 TF32 passes of "
-        f"{flops:.3e} flop; {nbytes:.3e} B); per kernel "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
-    return {"shape": [R, ws, T, C, 1], "ms": ms, "plain_ms": plain_ms,
+        f"{flops:.3e} flop, {fma_row} FMA a row; {nbytes:.3e} B); per "
+        "kernel " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    return {"shape": [R, ws, T, C, stride], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "per_kernel_ms": split}
@@ -2004,7 +2182,7 @@ def seg_phase(fused_policy, l2f):
     k2_err = k2_check(fused_policy, packed, pop, k2_rows, spcfg, l2f, model)
     odd = k2_rows[:k2_rows.shape[0] - 7]
     k2_err = max(k2_err, k2_check(fused_policy, packed, pop, odd, spcfg, l2f))
-    k2 = k2_seg_timing(fused_policy, packed, pop, k2_rows)
+    k2 = k2_shape_timing(fused_policy, packed, pop, k2_rows, 1, "seg")
     k2.update(max_abs_err=k2_err, launches=k2_launches)
 
     out["general"] = general_checks(general, SolverConfig)
@@ -2012,6 +2190,280 @@ def seg_phase(fused_policy, l2f):
     images = probs["1e4"][0]
     rows4 = k2_rows[:80_000]
     out["train"] = seg_train_check(images, spcfg, rows4, fused_policy, l2f)
+    return out, k2_launches, k2
+
+
+# --- the sparse attack ------------------------------------------------------
+
+def g_split(attack, model, x, tg, eps, Bm, nw, cfg, lam, W=20):
+    """W attack G iterations from G = 1."""
+    import torch
+    return iteration_split(lambda n: attack.g_window(
+        model, x, tg, eps, attack.init_attack_state(torch.ones_like(x)), Bm,
+        nw, cfg, n, lam, record=False), W)
+
+
+def attack_contract(res, k):
+    """The attack's output contract: G binary, L0 = sum G, L0 <= 1.5 k,
+    L-inf <= 1 (the JAX package's tests/test_attack.py)."""
+    import numpy as np
+    G = res["G"]
+    B = G.shape[0]
+    require(set(np.unique(G)) <= {0.0, 1.0}, "attack: G binary")
+    require(np.all(res["L0"] == G.reshape(B, -1).sum(-1)), "attack: L0 = sum G")
+    require(np.all(res["L0"] <= 1.5 * k), f"attack: L0 <= 1.5 k: {res['L0']}")
+    require(np.all(res["Li"] <= 1.0 + 1e-6), "attack: L-inf <= 1")
+    require(all(np.all(np.isfinite(res[n])) for n in ("L1", "L2", "Li")),
+            "attack: finite norms")
+
+
+def attack_oracle_check(attack, cifarnet, model, x, tg, Bm, nw, cfg):
+    """The CNN oracle and the G iteration on the card against the port on
+    the CPU, at ATTACK_WINDOW_LAMBDA: epsilon from ATTACK_WINDOW
+    update_epsilon iterations on each side (from 0, G = 1), held to
+    ATTACK_WINDOW_TOL; the loss gradient in epsilon and in G at the same
+    inputs on both sides -- epsilon 0 (the clip's ties at every 0 and 1
+    pixel) and the card's epsilon -- held to ATTACK_GRAD_TOL relative to
+    the CPU's largest entry; then ATTACK_WINDOW G iterations from G = 1
+    on each side from its own epsilon, every state field held to
+    ATTACK_WINDOW_TOL.  The CNN term's reach -- how far it moves G over
+    the window (the card at lambda1 0 against ATTACK_WINDOW_LAMBDA) --
+    must pass ATTACK_REACH times that bound, so that the window check
+    sees the card's convolutions."""
+    import torch
+    cpu = cifarnet.load_victim_npz(ATTACK_VICTIM, device="cpu")
+    side = {"cuda": (model, x, tg, Bm, nw),
+            "cpu": (cpu, x.cpu(), tg.cpu(), Bm.cpu(), nw.cpu())}
+    ecfg = cfg.replace(maxIter_e=ATTACK_WINDOW)
+
+    def lam(dev, v=ATTACK_WINDOW_LAMBDA):
+        return torch.full((ATTACK_BATCH,), v, device=dev)
+
+    eps = {dev: attack.update_epsilon(m, xs, t, torch.zeros_like(xs),
+                                      torch.ones_like(xs), w, ecfg,
+                                      lambda1=lam(dev))
+           for dev, (m, xs, t, _, w) in side.items()}
+    res = {"eps": (eps["cuda"].cpu() - eps["cpu"]).abs().max().item()}
+    m_c, x_c, t_c, _, _ = side["cpu"]
+    G1 = torch.ones_like(x_c)
+    grads = {}
+    for name, e, wrt in (("eps@0", torch.zeros_like(x_c), "eps"),
+                         ("eps", eps["cuda"].cpu(), "eps"),
+                         ("G", eps["cuda"].cpu(), "G")):
+        gc = attack._loss_grad(m_c, x_c, t_c, e, G1, cfg, wrt)
+        gd = attack._loss_grad(model, x, tg, e.cuda(), G1.cuda(), cfg, wrt)
+        grads[name] = ((gd.cpu() - gc).abs().max()
+                       / gc.abs().max()).item()
+    res["grad_rel"] = grads
+
+    def window(dev, lam_v):
+        m, xs, t, b, w = side[dev]
+        st, _ = attack.g_window(
+            m, xs, t, eps[dev], attack.init_attack_state(torch.ones_like(xs)),
+            b, w, cfg, ATTACK_WINDOW, lam(dev, lam_v), record=False)
+        return st
+
+    st = {dev: window(dev, ATTACK_WINDOW_LAMBDA) for dev in side}
+    res["window"] = {f: (getattr(st["cuda"], f).cpu()
+                         - getattr(st["cpu"], f)).abs().max().item()
+                     for f in ("G", "y1", "y2", "y3", "z1", "z2", "z3", "z4")}
+    res["reach"] = (st["cuda"].G - window("cuda", 0.0).G).abs().max().item()
+    log(f"  CNN oracle, card vs CPU at lambda1 {ATTACK_WINDOW_LAMBDA:g}: "
+        f"{ATTACK_WINDOW} epsilon iterations {res['eps']:.2e}; gradient "
+        "relative to max |CPU| " + " ".join(
+            f"{k}={v:.2e}" for k, v in grads.items())
+        + f" (tol {ATTACK_GRAD_TOL:g})")
+    log(f"  {ATTACK_WINDOW} G iterations, card vs CPU: " + " ".join(
+        f"{f}={e:.2e}" for f, e in res["window"].items())
+        + f" (tol {ATTACK_WINDOW_TOL:g}); the CNN term moves G by "
+        f"{res['reach']:.2e} over them")
+    require(res["eps"] <= ATTACK_WINDOW_TOL,
+            f"attack: {ATTACK_WINDOW} epsilon iterations within "
+            f"{ATTACK_WINDOW_TOL:g}: {res['eps']}")
+    require(max(grads.values()) <= ATTACK_GRAD_TOL,
+            f"attack: the CNN gradients within {ATTACK_GRAD_TOL:g}: {grads}")
+    require(max(res["window"].values()) <= ATTACK_WINDOW_TOL,
+            f"attack: {ATTACK_WINDOW} G iterations within "
+            f"{ATTACK_WINDOW_TOL:g}: {res['window']}")
+    require(res["reach"] >= ATTACK_REACH * ATTACK_WINDOW_TOL,
+            f"attack: the CNN term moves G by {res['reach']:.2e}, under "
+            f"{ATTACK_REACH} x the window bound")
+    return res
+
+
+def attack_phase(fused_policy, l2f):
+    """The sparse attack at the full ATTACK_CONFIG on ATTACK_BATCH images:
+    the CNN oracle and 20 G iterations on the card against the CPU
+    (``attack_oracle_check``); one attack_single plain at init_lambda1
+    and one l2f at lambda1 10 (K2's counts from 0 before each, read
+    after) against the JAX package's CPU referee, with the planted fault
+    (the policy's scores inverted) that must cross one of its bounds; K2
+    against its plain version on the l2f run's own rows (B * 3072 x 50);
+    the full l2f search with the repair (counts from 0 before it, read
+    after) and its output contract; a profile of an epsilon and a G
+    iteration.  Returns the summary, K2's launches on the attack path and
+    its timing."""
+    import numpy as np
+    import torch
+    from lpbox_admm_tpu_torch.adapters import attack
+    from lpbox_admm_tpu_torch.config import ATTACK_CONFIG, PolicyConfig
+    from lpbox_admm_tpu_torch.experiments import run_attack
+    from lpbox_admm_tpu_torch.models import cifarnet
+    from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
+
+    out = {}
+    cfg = ATTACK_CONFIG.replace(segments=ATTACK_SEGMENTS,
+                                lambda1_search_times=ATTACK_SEARCH_ROUNDS)
+    pcfg = PolicyConfig(net="mha", node_size=10, chunk_dim=5)
+    t0 = time.perf_counter()
+    imgs = attack_images(ATTACK_SEED, ATTACK_BATCH)
+    Bm_h = run_attack.group_masks(imgs, ATTACK_SEGMENTS)
+    out["setup_s"] = time.perf_counter() - t0
+    model = cifarnet.load_victim_npz(ATTACK_VICTIM, device="cuda")
+    policy = load_policy(ATTACK_CKPT, node_size=10, chunk_dim=5,
+                         device="cuda")
+    x = torch.from_numpy(imgs).cuda()
+    labels, _ = attack.predictions(model, x, torch.zeros_like(x),
+                                   torch.ones_like(x), cfg)
+    labels = labels.tolist()
+    targets = [run_attack.target_of(t) for t in labels]
+    tg = torch.tensor(targets, device="cuda")
+    Bm = torch.from_numpy(Bm_h).cuda()
+    nw = torch.ones_like(x)
+    log(f"  {ATTACK_BATCH} images (0 px {int((imgs == 0).sum())}, 1 px "
+        f"{int((imgs == 1).sum())}), SLIC {Bm_h.shape[1]} masks max, victim "
+        f"labels {labels}, targets {targets} (setup {out['setup_s']:.2f} s)")
+    require(labels == ATTACK_REFEREE["labels"],
+            f"attack: the victim's labels on the card are the JAX "
+            f"package's: {labels}")
+
+    # --- the CNN oracle and 20 G iterations, card against the CPU ---------
+    out["oracle"] = attack_oracle_check(attack, cifarnet, model, x, tg, Bm,
+                                        nw, cfg)
+
+    # --- the referee: attack_single plain at init_lambda1 and l2f at a
+    # lambda1 where the policy decides L0 -------------------------------------
+    def referee_run(mode, lam_v):
+        lam = torch.full((ATTACK_BATCH,), lam_v, device="cuda")
+        t0 = time.perf_counter()
+        res = attack.attack_single(model, x, tg, Bm, nw, cfg, lam,
+                                   use_l2f=mode != "plain",
+                                   policy_model=policy, pcfg=pcfg)
+        torch.cuda.synchronize()
+        res = {k: v.cpu().numpy() for k, v in res.items()}
+        return res, time.perf_counter() - t0
+
+    def against(mode, res):
+        ref = ATTACK_REFEREE[mode]
+        diff = int((res["success"] != np.array(ref["success"])).sum())
+        return diff, abs(res["L0"].mean() - np.mean(ref["L0"])) / cfg.k
+
+    k2_launches = 0
+    runs = {}
+    lams = {"plain": cfg.init_lambda1,
+            "l2f_at": ATTACK_REFEREE["l2f_at"]["lambda1"]}
+    for mode, lam_v in lams.items():
+        fused_policy.LAUNCHES = 0
+        with FirstCall(l2f, "policy_scores_fused") as first:
+            res, wall = referee_run(mode, lam_v)
+        launches = fused_policy.LAUNCHES
+        k2_launches += launches
+        require(launches == (0 if mode == "plain" else 2),
+                f"attack {mode}: K2 launched after windows 0 and 1 only: "
+                f"{launches}")
+        if mode == "l2f_at":
+            k2_rows = first.args[1]
+        diff, l0_d = against(mode, res)
+        ref = ATTACK_REFEREE[mode]
+        runs[mode] = {"lambda1": lam_v, "wall_s": wall,
+                      "k2_launches": launches,
+                      "success": res["success"].tolist(),
+                      "L0": res["L0"].tolist(), "success_diff": diff,
+                      "l0_d": l0_d}
+        log(f"  attack_single {mode} at lambda1 {lam_v:g}: wall {wall:.2f} "
+            f"s, success {res['success'].astype(int).tolist()}, L0 "
+            f"{res['L0'].tolist()} (JAX on the CPU: success "
+            f"{np.array(ref['success']).astype(int).tolist()}, L0 "
+            f"{ref['L0']}); success differs on {diff} images (slack "
+            f"{ATTACK_SUCCESS_SLACK}), mean L0 off by {l0_d:.4f} k (tol "
+            f"{ATTACK_L0_TOL}); K2 launches {launches}")
+        require(diff <= ATTACK_SUCCESS_SLACK,
+                f"attack {mode}: success per image against the referee")
+        require(l0_d <= ATTACK_L0_TOL,
+                f"attack {mode}: mean L0 against the referee: {l0_d:.4f} k")
+    out["referee"] = runs
+    real_scorer = l2f._scorer
+
+    def inverted(*a, **k):
+        score = real_scorer(*a, **k)
+        return lambda rows: 1.0 - score(rows)
+
+    l2f._scorer = inverted
+    try:
+        bad, _ = referee_run("l2f_at", lams["l2f_at"])
+    finally:
+        l2f._scorer = real_scorer
+    fault = against("l2f_at", bad)
+    out["planted"] = {"success": bad["success"].tolist(),
+                      "L0": bad["L0"].tolist(), "success_diff": fault[0],
+                      "l0_d": fault[1]}
+    log(f"  planted fault (policy scores inverted) at lambda1 "
+        f"{lams['l2f_at']:g}: success {bad['success'].astype(int).tolist()}"
+        f", L0 {bad['L0'].tolist()}; differs on {fault[0]} images, mean "
+        f"L0 {fault[1]:.4f} k off the referee")
+    require(fault[0] > ATTACK_SUCCESS_SLACK or fault[1] > ATTACK_L0_TOL,
+            f"attack planted fault crosses a referee bound: {fault}")
+
+    # --- K2 at the attack shape, on the rows of the l2f run whose L0 the
+    # policy decides ------------------------------------------------------
+    packed = fused_policy.pack_policy_weights(policy)
+    pop = fused_policy.policy_operand(packed)
+    k2_err = k2_check(fused_policy, packed, pop, k2_rows, pcfg, l2f, policy)
+    k2 = k2_shape_timing(fused_policy, packed, pop, k2_rows, 5, "attack")
+
+    # --- the full l2f search with the repair --------------------------------
+    lines = []
+    fused_policy.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = attack.attack_with_search(model, x, tg, Bm, nw, cfg, use_l2f=True,
+                                    policy_model=policy, pcfg=pcfg,
+                                    repair=True, log=lines.append)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    search_k2 = fused_policy.LAUNCHES
+    k2_launches += search_k2
+    for line in lines:
+        log("    " + line)
+    cut = ("" if ATTACK_SEARCH_ROUNDS == ATTACK_CONFIG.lambda1_search_times
+           else f" (rounds cut from {ATTACK_CONFIG.lambda1_search_times} to "
+           "fit the phase's deadline)")
+    log(f"  l2f search ({ATTACK_SEARCH_ROUNDS} rounds{cut}, repair): wall "
+        f"{search_s:.2f} s, asr {res['asr']:.3f}, mean L0 "
+        f"{res['L0'].mean():.1f} L1 {res['L1'].mean():.3f} L2 "
+        f"{res['L2'].mean():.4f} Linf {res['Li'].mean():.4f}, lambda1 "
+        f"{res['lambda1'].tolist()}, K2 launches {search_k2}")
+    require(search_k2 == 2 * ATTACK_SEARCH_ROUNDS,
+            f"attack search: K2 launched twice a round: {search_k2}")
+    attack_contract(res, cfg.k)
+    out["search"] = {"wall_s": search_s, "rounds": ATTACK_SEARCH_ROUNDS,
+                     "asr": res["asr"], "k2_launches": search_k2,
+                     **{f"{n}_mean": float(np.mean(res[n]))
+                        for n in ("L0", "L1", "L2", "Li")}}
+
+    # --- where an epsilon and a G iteration's time goes -------------------
+    lam0 = torch.full((ATTACK_BATCH,), cfg.lambda1, device="cuda")
+    eps = attack.update_epsilon(model, x, tg, torch.zeros_like(x),
+                                torch.ones_like(x), nw, cfg.replace(
+                                    maxIter_e=ATTACK_WINDOW), lambda1=lam0)
+    out["eps_iteration"] = iteration_split(
+        lambda n: attack.update_epsilon(model, x, tg, eps, torch.ones_like(x),
+                                        nw, cfg.replace(maxIter_e=n),
+                                        lambda1=lam0))
+    out["g_iteration"] = g_split(attack, model, x, tg, eps, Bm, nw, cfg, lam0)
+    for what, name in (("eps", "an epsilon"), ("g", "a G")):
+        log(f"  {name} iteration: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in out[f"{what}_iteration"].items()))
+    k2.update(max_abs_err=k2_err, launches=k2_launches)
     return out, k2_launches, k2
 
 
@@ -2025,14 +2477,16 @@ def main():
               "script runs only on a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    mega_inst = MegaInstance()
+    workers = {"mega": HostWorker(_generate_mega, "mega"),
+               "xl": HostWorker(_generate_xl, "xl")}
     try:
-        return run(mega_inst)
+        return run(workers)
     finally:
-        mega_inst.close()
+        for w in workers.values():
+            w.close()
 
 
-def run(mega_inst):
+def run(workers):
     import numpy as np
     import torch
     from lpbox_admm_tpu_torch.adapters import ca
@@ -2200,11 +2654,11 @@ def run(mega_inst):
     from lpbox_admm_tpu_torch.ops import fused_stream, symm
     xcfg = LP_CONFIG.replace(linsolve="woodbury", matvec_dtype="bfloat16")
     with Phase("generate-xl", 240) as ph:
-        rng = np.random.RandomState(XL_SEED)
-        xinsts = [ca.generate_cauction(rng, n_items=XL_ITEMS, n_bids=XL_BIDS)
-                  for _ in range(XL_BATCH)]
+        xinsts = xl_instances(workers["xl"])
+        wait_s = time.perf_counter() - ph.t0
         xprob = ca.make_problem(xinsts, device="cuda")
-        log(f"  {XL_BATCH} CA-({XL_ITEMS}, {XL_BIDS}) instances, E "
+        log(f"  {XL_BATCH} CA-({XL_ITEMS}, {XL_BIDS}) instances (generated "
+            f"in a worker; waited {wait_s:.2f} s), E "
             f"{tuple(xprob.E.shape)}, {xinsts[0][1].shape[0]} rows in the "
             "first")
         require(tuple(xprob.E.shape) == (XL_BATCH, 1664, 4096), "xl padding")
@@ -2374,7 +2828,7 @@ def run(mega_inst):
     # solve, read after it --------------------------------------------------
     with Phase("mega", 360) as ph:
         summary["mega"], mega_k2, mega_rows = mega_phase(
-            mega_inst, model, packed, pcfg, lp, fused_policy, l2f)
+            workers["mega"], model, packed, pcfg, lp, fused_policy, l2f)
         k2m_err = k2_check(fused_policy, packed, pop, mega_rows, pcfg, l2f)
         summary["k2_mega_ms"] = cuda_ms(
             lambda: fused_policy.policy_scores_cuda(
@@ -2382,6 +2836,8 @@ def run(mega_inst):
         log(f"  K2 on the mega policy window's {mega_rows.shape[0]} rows: "
             f"{summary['k2_mega_ms']:.3f} ms a launch")
         del mega_rows
+        summary["mega_train"], mega_train_k2 = mega_train_check(fused_policy,
+                                                                l2f)
     summary["mega_s"] = ph.seconds
 
     # --- the segmentation workload: K2's counts from 0 before each of its
@@ -2390,11 +2846,19 @@ def run(mega_inst):
         summary["seg"], seg_k2, k2_seg = seg_phase(fused_policy, l2f)
     summary["seg_s"] = ph.seconds
 
+    # --- the sparse attack: K2's counts from 0 before its l2f attack and
+    # its search, read after each ------------------------------------------
+    with Phase("attack", ATTACK_BUDGET_S) as ph:
+        summary["attack"], attack_k2, k2_attack = attack_phase(fused_policy,
+                                                               l2f)
+    summary["attack_s"] = ph.seconds
+
     with Phase("timing", 120) as ph:
         kernels = timings(prob, cfg, pcfg, packed, pop, rows, lp, fused_lp,
                           fused_policy, launches, k1_res,
                           max(k2_err, k2x_err, k2m_err,
-                              k2_seg["max_abs_err"]))
+                              k2_seg["max_abs_err"],
+                              k2_attack["max_abs_err"]))
         if tail_k1 is not None:
             summary["xl_tail_k1"] = xl_tail_k1_timing(*tail_k1, fused_lp)
             kernels[0]["routes_xl_tail"] = summary["xl_tail_k1"]["routes"]
@@ -2402,8 +2866,11 @@ def run(mega_inst):
         kernels[1]["launches_train"] = train_launches["K2"]
         kernels[0]["launches_lp_options"] = auto_k1
         kernels[1]["launches_mega"] = mega_k2
+        kernels[1]["launches_mega_train"] = mega_train_k2
         kernels[1]["launches_seg"] = seg_k2
         kernels[1]["seg"] = k2_seg
+        kernels[1]["launches_attack"] = attack_k2
+        kernels[1]["attack"] = k2_attack
         kernels += xl_timings(k3_args, Gp, v4, s0x.ginv, fused_stream, symm,
                               {"K3": xl_launches["K3"],
                                "K4": sym_launches["K4"]}, k3_res, k4_res)
@@ -2464,12 +2931,7 @@ def timings(prob, cfg, pcfg, packed, pop, rows, lp, fused_lp, fused_policy,
     C = packed.w_top.shape[0]
     L = packed.wqkv.shape[0]
     F = packed.w1.shape[-1]
-    fma_row = T * C * E + L * (T * E * 3 * E + 2 * T * T * E + T * E * E
-                               + 2 * T * E * F) \
-        + T * E * 256 + 256 * 128 + 128 * 16 + 16
-    k2_flops = 2.0 * fma_row * R
-    k2_bytes = rows.numel() * 4 + R * 4 + sum(
-        t.numel() * 4 for t in packed)
+    k2_flops, k2_bytes, _ = k2_work(packed, rows)
     # f32 accuracy on the tensor cores takes three TF32 passes
     k2_bound = max(3 * k2_flops / PEAK_TF32_FLOPS,
                    k2_bytes / PEAK_HBM_BYTES)

@@ -8,6 +8,7 @@ so that one set of field values drives both packages in the tests.
 Provenance of the presets (reference SCLBD/Accelerated-Lpbox-ADMM):
 LP preset  -> LinerProgramming/.../cython_solver/LPboxADMMsolver.cpp:489-507.
 Seg preset -> Segmentation/.../cython/src/LPboxADMMsolver.cpp:658-672.
+Attack preset -> SparseAttack/SparseAttack/flags.py:83-157.
 """
 
 from __future__ import annotations
@@ -84,6 +85,58 @@ SEG_CONFIG = SolverConfig(
     gamma_factor=0.99,
     linsolve="cg",
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class AttackConfig:
+    """Sparse adversarial attack hyperparameters.
+
+    Reproduces the effective defaults of the reference's ``flags.py``
+    (SparseAttack/SparseAttack/flags.py:83-157).
+    """
+
+    k: int = 200                     # L0 budget (number of perturbed entries)
+    lambda1: float = 1e-3            # CNN-loss weight
+    lambda2: float = 1e-3            # group-sparsity weight
+    confidence: float = 0.0          # CW margin
+    loss: str = "cw"                 # "cw" | "ce"
+    categories: int = 10
+
+    lr_g: float = 0.1
+    lr_e: float = 0.1
+    lr_min: float = 1e-3
+    lr_decay_step: int = 50
+    lr_decay_factor: float = 0.9
+
+    rho1: float = 5e-3
+    rho2: float = 5e-3
+    rho3: float = 5e-3
+    rho4: float = 1e-4
+    rho_increase_step: int = 1
+    rho_increase_factor: float = 1.01
+    rho1_max: float = 20.0
+    rho2_max: float = 20.0
+    rho3_max: float = 100.0
+    rho4_max: float = 0.01
+
+    maxIter_e: int = 2000
+    maxIter_g: int = 2000
+    maxIter_mm: int = 1
+
+    min_pix_value: float = 0.0
+    max_pix_value: float = 1.0
+    segments: int = 150              # SLIC superpixel target count
+
+    init_lambda1: float = 1e-3
+    lambda1_search_times: int = 6
+    lambda1_upper_bound: float = 1e2
+    lambda1_lower_bound: float = 0.0
+
+    def replace(self, **kw) -> "AttackConfig":
+        return dataclasses.replace(self, **kw)
+
+
+ATTACK_CONFIG = AttackConfig()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,6 +5,7 @@ instance ladder, cython_solver/LPboxADMMsolver.cpp:2461-2486).
     python -m lpbox_admm_tpu_torch.scripts.mega_l2f --phase gen      --seeds bench,7001
     python -m lpbox_admm_tpu_torch.scripts.mega_l2f --phase labels   --seeds bench
     python -m lpbox_admm_tpu_torch.scripts.mega_l2f --phase transfer --seeds bench
+    python -m lpbox_admm_tpu_torch.scripts.mega_l2f --phase train    --seeds 7001,7002,bench --init-ckpt ...
     python -m lpbox_admm_tpu_torch.scripts.mega_l2f --phase l2f      [--ckpt ...]
 
 Phases:
@@ -18,6 +19,16 @@ Phases:
 * ``transfer`` a checkpoint's deter_fix_2 decisions on the cached
                trajectories against the labels at a grid of
                confidences: fix volume, errors, |b|-weighted error mass.
+* ``train``    imitation of the policy (``train.imitation.PolicyTrainer``,
+               node size ws / 5) on the ``labels`` datasets, one step per
+               dataset an epoch, all seeds but ``--holdout`` (default the
+               last); after each epoch the held-out proxy -- the
+               deter_fix_2 decisions on the holdout's trajectories
+               (scored by ``train.l2f._scorer``: K2 on the card) through
+               ``transfer_report``: |b| mass of wrong fixes over |obj|
+               plus 0.05 x the shortfall of the fixed fraction below
+               ``--target-frac`` -- picks the best checkpoint, saved in
+               the JAX package's ``.npz`` format under ``--save-dir``.
 * ``l2f``      ``train.l2f_struct.l2f_solve_struct`` on the first seed:
                policy windows on the full struct problem (K2 scores on
                the card), one host fix+compact, the residual at
@@ -26,9 +37,9 @@ Phases:
                where there is one (read only).
 
 Instances and datasets are cached in ``--cache`` (default
-``lpbox_admm_tpu_torch/_mega_cache``).  The ``train`` phase of the JAX
-script (imitation on the cached trajectories) is not ported yet.  Runs
-on the card unless ``--device cpu`` is given.
+``lpbox_admm_tpu_torch/_mega_cache``), the train phase's checkpoints in
+``--save-dir`` (default ``{cache}/mega_mha``).  Runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -184,6 +195,80 @@ def phase_transfer(args, seeds):
                                 f"dg={args.damage_gate}")
 
 
+def load_dataset(args, seed, device):
+    """A ``labels`` dataset as a one-instance ``TrajectoryDataset``."""
+    import torch
+    from ..train.imitation import TrajectoryDataset
+    with np.load(ds_path(args.n_items, args.n_bids, seed, args.cache)) as z:
+        t = lambda a: torch.from_numpy(a.astype(np.float32))[None].to(device)
+        traj = t(z["traj"])
+        return TrajectoryDataset(
+            traj=traj, labels=t(z["labels"]),
+            var_mask=torch.ones(traj.shape[:2], dtype=torch.bool,
+                                device=device),
+            oracle_obj=torch.tensor([float(z["obj"])], device=device),
+            oracle_iters=int(z["iters"]))
+
+
+def holdout_proxy(args, model, pcfg, hz, device):
+    """The held-out proxy of a policy module: the |b| mass of its wrong
+    fixes on the holdout over |obj|, plus 0.05 x the shortfall of the
+    fixed fraction below ``--target-frac`` (fixing too little destroys
+    the speed-up)."""
+    import torch
+    from ..train import l2f
+    from ..train.l2f_struct import transfer_report, window_decisions
+    score = l2f._scorer(model, pcfg, torch.device(device), 8192)
+    vec, _ = window_decisions(hz["traj"], score, args.ws, args.conf,
+                              args.fix_windows, args.policy_windows,
+                              device=device)
+    nf, _, mass = transfer_report(vec, hz["labels"], hz["b"], hz["obj"],
+                                  tag="holdout")
+    return mass / abs(hz["obj"]) + 0.05 * max(0.0, args.target_frac
+                                              - nf / len(vec))
+
+
+def phase_train(args, seeds):
+    """Imitation on the cached datasets, the best checkpoint by the
+    held-out proxy.  Returns the best proxy, its epoch, each epoch's
+    loss and proxy, and the trained state."""
+    from ..config import LP_CONFIG, PolicyConfig
+    from ..core.problem import as_device
+    from ..models.policy import build_policy
+    from ..train.imitation import PolicyTrainer
+    dev = as_device(args.device)
+    train_seeds = [s for s in seeds if s != args.holdout]
+    pcfg = PolicyConfig(net="mha", lr=args.lr, node_size=args.ws // 5)
+    model = build_policy("mha", pcfg.node_size, pcfg.chunk_dim, pcfg.pe_dim)
+    trainer = PolicyTrainer(model, pcfg, LP_CONFIG, ws=args.ws,
+                            save_dir=args.save_dir, device=dev)
+    datasets = [load_dataset(args, s, dev) for s in train_seeds]
+    n_eps = min(args.episodes, datasets[0].traj.shape[-1] // args.ws)
+    with np.load(ds_path(args.n_items, args.n_bids, args.holdout,
+                         args.cache)) as z:
+        hz = {"traj": z["traj"].astype(np.float32), "labels": z["labels"],
+              "b": z["b"], "obj": float(z["obj"])}
+    if args.init_ckpt:
+        ts = trainer.load(args.init_ckpt)
+        print(f"init from {args.init_ckpt}", flush=True)
+    else:
+        ts = trainer.init(args.seed_rng)
+    best, history = (np.inf, -1), []
+    for epoch in range(args.epochs):
+        ts, loss = trainer.train_epoch(ts, datasets, n_episodes=n_eps)
+        p = holdout_proxy(args, trainer.variables(ts), pcfg, hz, dev)
+        history.append({"epoch": epoch, "loss": loss, "proxy": p})
+        print(f"epoch {epoch}: loss {loss:.5f} proxy {p:.5f}", flush=True)
+        trainer.save(ts, epoch)
+        if p < best[0]:
+            best = (p, epoch)
+            trainer.save(ts, epoch, best=True)
+    print(f"best epoch {best[1]} proxy {best[0]:.5f} -> "
+          f"{args.save_dir}/checkpoint/best_checkpoint.npz", flush=True)
+    return {"best_proxy": best[0], "best_epoch": best[1],
+            "history": history, "state": ts}
+
+
 def phase_l2f(args, seeds):
     from ..train.l2f_struct import l2f_solve_struct
     seed = seeds[0]
@@ -219,7 +304,8 @@ def phase_l2f(args, seeds):
 def parse_args(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", required=True,
-                    choices=["gen", "labels", "transfer", "l2f"])
+                    choices=["gen", "labels", "transfer", "train",
+                             "l2f"])
     ap.add_argument("--rung", default="1000x100000")
     ap.add_argument("--seeds", default="bench")
     ap.add_argument("--cache", default=CACHE)
@@ -248,8 +334,22 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--reduced-ginv", default="schur",
                     choices=["schur", "dense"])
     ap.add_argument("--force", action="store_true")
+    # train phase
+    ap.add_argument("--holdout", default=None,
+                    help="held-out seed (default: the last of --seeds)")
+    ap.add_argument("--epochs", type=int, default=30)
+    ap.add_argument("--episodes", type=int, default=5)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--seed-rng", type=int, default=0)
+    ap.add_argument("--init-ckpt", default=None)
+    ap.add_argument("--target-frac", type=float, default=0.6)
+    ap.add_argument("--save-dir", default=None,
+                    help="train phase checkpoints (default "
+                         "{cache}/mega_mha)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.save_dir is None:
+        args.save_dir = os.path.join(args.cache, "mega_mha")
     args.n_items, args.n_bids = map(int, args.rung.split("x"))
     args.conf_grid = [float(c) for c in args.conf_grid.split(",")]
     return args
@@ -265,6 +365,10 @@ def main(argv: Optional[Sequence[str]] = None):
         phase_labels(args, seeds)
     elif args.phase == "transfer":
         phase_transfer(args, seeds)
+    elif args.phase == "train":
+        if args.holdout is None:
+            args.holdout = seeds[-1]
+        return phase_train(args, seeds)
     else:
         return phase_l2f(args, seeds)
 

@@ -561,3 +561,85 @@ def test_seg_l2f_scores_with_k2_at_stride_1(cuda):
         fixed_g = (~sg.free & pg.mask).sum().item()
         fixed_c = (~sc.free & pc.mask).sum().item()
         assert fixed_c > 0 and abs(fixed_g - fixed_c) <= 0.02 * fixed_c
+
+
+# --- sparse attack (since the attack slice) ----------------------------------
+
+ATTACK_CKPT = str(Path(CKPT).parents[2] / "attack_mha" / "checkpoint"
+                  / "best_checkpoint.npz")
+VICTIM = str(Path(CKPT).parents[2] / "cifar_victim.npz")
+
+
+def test_k2_at_attack_shape(cuda):
+    """K2 on the attack's rows: B * 3072 = 24 576 rows of ws 50, 10
+    tokens of 5 (chunk mode), attack_mha's weights: within 1e-4 of its
+    plain version, one launch counted, a repeat launch the same bits."""
+    pcfg = PolicyConfig(net="mha", node_size=10, chunk_dim=5)
+    pk = fused_policy.pack_policy_weights(
+        load_policy(ATTACK_CKPT, node_size=10, chunk_dim=5, device=cuda))
+    op = fused_policy.policy_operand(pk)
+    rows = torch.rand(8 * 3072, 50, device=cuda,
+                      generator=torch.Generator(cuda).manual_seed(3))
+    before = fused_policy.LAUNCHES
+    sk = fused_policy.policy_scores_fused(pk, rows, pcfg, op)
+    assert fused_policy.LAUNCHES == before + 1
+    sp = fused_policy.policy_scores_plain(pk, rows, 5)
+    assert (sk - sp).abs().max().item() <= 1e-4
+    assert torch.equal(fused_policy.policy_scores_fused(pk, rows, pcfg, op),
+                       sk)
+
+
+def _attack_pair(cuda, n=2, segments=40):
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from lpbox_admm_tpu_torch.experiments import run_attack
+    from lpbox_admm_tpu_torch.models import cifarnet
+    imgs = chip_smoke.attack_images(5, n)
+    Bm = run_attack.group_masks(imgs, segments)
+    out = []
+    for dev in ("cpu", cuda):
+        model = cifarnet.load_victim_npz(VICTIM, device=dev)
+        x = torch.from_numpy(imgs).to(dev)
+        tg = torch.tensor([run_attack.target_of(int(t)) for t in
+                           model(x - 0.5).argmax(-1)], device=dev)
+        out.append((model, x, tg, torch.from_numpy(Bm).to(dev),
+                    torch.ones_like(x)))
+    return out
+
+
+def test_g_window_on_card_matches_cpu(cuda):
+    """20 G iterations on the card against the CPU: every state field
+    within 1e-3."""
+    from lpbox_admm_tpu_torch.adapters import attack
+    from lpbox_admm_tpu_torch.config import ATTACK_CONFIG
+    cfg = ATTACK_CONFIG.replace(maxIter_e=20)
+    res = []
+    for model, x, tg, Bm, nw in _attack_pair(cuda):
+        lam = torch.full((x.shape[0],), 10.0, device=x.device)
+        eps = attack.update_epsilon(model, x, tg, torch.zeros_like(x),
+                                    torch.ones_like(x), nw, cfg, lambda1=lam)
+        st, _ = attack.g_window(model, x, tg, eps,
+                                attack.init_attack_state(torch.ones_like(x)),
+                                Bm, nw, cfg, 20, lam, record=False)
+        res.append(st)
+    for f in ("G", "y1", "y2", "y3", "z1", "z2", "z3", "z4"):
+        assert (getattr(res[1], f).cpu() - getattr(res[0], f)).abs().max() \
+            <= 1e-3, f
+
+
+def test_attack_l2f_scores_with_k2(cuda):
+    """The l2f G update on the card launches K2 after each window but the
+    last (2 of 3), on B * 3072 rows of 50."""
+    from lpbox_admm_tpu_torch.adapters import attack
+    from lpbox_admm_tpu_torch.config import ATTACK_CONFIG
+    pcfg = PolicyConfig(net="mha", node_size=10, chunk_dim=5)
+    model, x, tg, Bm, nw = _attack_pair(cuda)[1]
+    policy = load_policy(ATTACK_CKPT, node_size=10, chunk_dim=5, device=cuda)
+    lam = torch.full((x.shape[0],), 1e-3, device=cuda)
+    before = fused_policy.LAUNCHES
+    G = attack.update_g_l2f(model, x, tg, torch.zeros_like(x),
+                            torch.ones_like(x), Bm, nw, ATTACK_CONFIG, lam,
+                            policy_model=policy, pcfg=pcfg)
+    assert fused_policy.LAUNCHES == before + 2
+    assert bool(torch.isfinite(G).all())

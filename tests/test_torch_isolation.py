@@ -60,7 +60,9 @@ assert "lpbox_admm_tpu_torch.scripts.probe_dot" in sys.modules
 for name in ("ops.sparse", "ops.mxu_sparse", "ops.ca_sparse",
              "ops.struct_ginv", "train.l2f_struct", "scripts.mega_l2f",
              "scripts.auto_rule", "ops.stencil", "core.qp", "core.general",
-             "adapters.segmentation", "experiments.run_seg"):
+             "adapters.segmentation", "experiments.run_seg",
+             "adapters.attack", "adapters.slic", "models.cifarnet",
+             "experiments.run_attack"):
     assert "lpbox_admm_tpu_torch." + name in sys.modules, name
 print("imports-ok")
 """
@@ -146,6 +148,63 @@ def test_segmentation_entry_points_default_to_cuda(tmp_path):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     assert seg.make_problem([im], device="cpu").b.device.type == "cpu"
+
+
+def test_attack_entry_points_default_to_cuda(tmp_path):
+    """The victim loaders, ``run_attack`` and ``mega_l2f --phase train``
+    run on the card unless asked for the CPU: without a card they raise
+    instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from lpbox_admm_tpu_torch.experiments import run_attack
+    from lpbox_admm_tpu_torch.models import cifarnet
+    from lpbox_admm_tpu_torch.scripts import mega_l2f
+    npz = str(ROOT / "checkpoints" / "cifar_victim.npz")
+    calls = [lambda: cifarnet.init_victim(0),
+             lambda: cifarnet.load_victim_npz(npz),
+             lambda: cifarnet.victim_from_flax({"params": {}}),
+             lambda: run_attack.main(["-phase", "solve", "-image_dir",
+                                      str(tmp_path), "-result_dir",
+                                      str(tmp_path / "out")], log=print),
+             lambda: mega_l2f.main(["--phase", "train", "--rung", "50x300",
+                                    "--seeds", "5,6", "--cache",
+                                    str(tmp_path)])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not cifarnet.init_victim(0, device="cpu").training
+
+
+ATTACK_PIL_BLOCKED = """
+import importlib.abc, sys
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] == "PIL":
+            raise ImportError("blocked: " + name)
+        return None
+sys.meta_path.insert(0, Blocker())
+from lpbox_admm_tpu_torch.adapters import attack, slic
+from lpbox_admm_tpu_torch.experiments import run_attack
+from lpbox_admm_tpu_torch.models import cifarnet
+args = run_attack.parse_args(["-image_dir", "."])
+try:
+    run_attack.load_images(args)
+except ImportError as e:
+    assert "PIL" in str(e), e
+else:
+    raise AssertionError("no ImportError")
+assert "PIL" not in sys.modules
+print("attack-pil-free-ok")
+"""
+
+
+def test_attack_modules_import_without_pil():
+    res = subprocess.run(
+        [sys.executable, "-c", ATTACK_PIL_BLOCKED],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert res.returncode == 0, res.stderr
+    assert "attack-pil-free-ok" in res.stdout
 
 
 PIL_BLOCKED = """

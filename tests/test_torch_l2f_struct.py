@@ -289,3 +289,61 @@ def spread_readings(seeds=(5, 6, 7, 8, 9, 10), cap=4000):
 
 if __name__ == "__main__":
     spread_readings()
+
+
+def test_mega_train_phase_matches_jax(tmp_path, monkeypatch):
+    """``--phase train`` at 50 x 300 on two seeds (5 trains, 6 is held
+    out), one epoch from ``ca500_mha``: the port's held-out proxy equals
+    the JAX package's ``phase_train``'s (its ``transfer_report`` on the
+    same datasets) to 1e-6, and the best checkpoint the port writes loads
+    in the JAX package and scores as the port's module does."""
+    import argparse
+    from lpbox_admm_tpu.config import LP_CONFIG as JLP_
+    from lpbox_admm_tpu.models.policy import build_policy as jbuild
+    from lpbox_admm_tpu.train import l2f as jl2f
+    from lpbox_admm_tpu.train.imitation import PolicyTrainer as JTrainer
+    from lpbox_admm_tpu_torch.config import PolicyConfig as TPC
+    from lpbox_admm_tpu_torch.train import l2f as tl2f
+    from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
+    cache = str(tmp_path)
+    common = ["--rung", "50x300", "--seeds", "5,6", "--cache", cache,
+              "--device", "cpu"]
+    tmega.main(["--phase", "labels", "--cap", "1500", "--record", "300",
+                "--rho-step", "12"] + common)
+    # conf 0.9 and a target fraction above the fixed one, so that both
+    # terms of the proxy are live
+    train = ["--epochs", "1", "--init-ckpt", CKPT["mha"], "--conf", "0.9",
+             "--target-frac", "0.95"]
+    out = tmega.main(["--phase", "train", "--save-dir",
+                      str(tmp_path / "port")] + train + common)
+    reports = []
+    real = jmega.transfer_report
+
+    def record(*a, **k):
+        reports.append(real(*a, **k))
+        return reports[-1]
+
+    monkeypatch.setattr(jmega, "transfer_report", record)
+    monkeypatch.setattr(jmega, "ds_path",
+                        lambda i, b, s: tmega.ds_path(i, b, s, cache))
+    args = argparse.Namespace(
+        holdout="6", lr=1e-4, ws=100, save_dir=str(tmp_path / "jax"),
+        n_items=50, n_bids=300, episodes=5, init_ckpt=CKPT["mha"],
+        seed_rng=0, conf=0.9, fix_windows=2, policy_windows=3,
+        target_frac=0.95, epochs=1)
+    jmega.phase_train(args, ["5", "6"])
+    nf, _, mass = reports[-1]
+    with np.load(tmega.ds_path(50, 300, "6", cache)) as z:
+        n, obj = len(z["labels"]), float(z["obj"])
+    proxy_jax = mass / abs(obj) + 0.05 * max(0.0, 0.95 - nf / n)
+    assert out["best_epoch"] == 0 and 0 < nf < 0.95 * n
+    assert abs(out["best_proxy"] - proxy_jax) <= 1e-6
+    path = str(tmp_path / "port" / "checkpoint" / "best_checkpoint.npz")
+    jt = JTrainer(jbuild("mha"), JPC(net="mha", node_size=20), JLP_, ws=100)
+    jvars = jt.variables(jt.load(path))
+    rows = np.random.RandomState(0).rand(64, 100).astype(np.float32)
+    got = np_of(tl2f.policy_scores(load_policy(path, device="cpu"),
+                                   torch.from_numpy(rows), TPC(net="mha")))
+    want = np.asarray(jl2f.policy_scores(jbuild("mha"), jvars,
+                                         jnp.asarray(rows), JPC(net="mha")))
+    assert np.abs(got - want).max() <= 1e-5

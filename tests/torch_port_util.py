@@ -3,6 +3,7 @@
 batches both sides solve, conversion of solver states and policy
 variables through numpy, and the shipped checkpoints' paths."""
 
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -225,12 +226,85 @@ def seg_referee(images, ws=10, max_iter=30, repair=8, pair=4):
             "l2f_fix_errors": [int(v) for v in np.asarray(m["fix_errors"])]}
 
 
+# --- sparse attack -----------------------------------------------------------
+
+ATTACK_CKPT = str(ROOT / "checkpoints" / "attack_mha" / "checkpoint"
+                  / "best_checkpoint.npz")
+VICTIM_NPZ = str(ROOT / "checkpoints" / "cifar_victim.npz")
+
+# the smoke's own synthetic images (chip_smoke.py imports nothing of the
+# tests, the JAX package or the port at module level)
+sys.path.insert(0, str(ROOT))
+from chip_smoke import attack_images  # noqa: E402
+
+
+def attack_setup_jax(images, segments):
+    """The JAX package's attack inputs for ``images``: the victim from
+    ``cifar_victim.npz``, its own predictions as labels, the reference's
+    targets, SLIC masks padded to the largest count, unit noise
+    weights."""
+    import jax.numpy as jnp
+    from lpbox_admm_tpu.adapters import attack as ja
+    from lpbox_admm_tpu.adapters import slic as jslic
+    from lpbox_admm_tpu.models.cifarnet import init_victim
+    from lpbox_admm_tpu.utils.checkpoint import load_pytree
+    model, variables = init_victim()
+    variables = load_pytree(VICTIM_NPZ, variables)
+    labels = np.asarray(jnp.argmax(model.apply(
+        variables, ja.normalize(jnp.asarray(images))), -1))
+    targets = np.array([(t - 2) + 9 if t - 2 < 0 else t - 2 for t in labels])
+    Bms = [jslic.segment_masks((im.transpose(1, 2, 0) * 255).astype(np.uint8),
+                               n_segments=segments) for im in images]
+    Bm = np.zeros((len(images), max(b.shape[0] for b in Bms))
+                  + images.shape[1:], np.float32)
+    for i, b in enumerate(Bms):
+        Bm[i, :b.shape[0]] = b
+    return model, variables, labels, targets, Bm, np.ones_like(images)
+
+
+def attack_referee(images, l2f_lambda, segments=150):
+    """The JAX package's CPU readings that ``chip_smoke.py``'s attack
+    phase holds the card against: per-image success and L0 of one
+    ``attack_single`` at the full ``ATTACK_CONFIG``, plain at
+    ``init_lambda1`` and l2f (``attack_mha``, node 10 x chunk 5) at
+    ``l2f_lambda``."""
+    import jax.numpy as jnp
+    from lpbox_admm_tpu import config as jconfig
+    from lpbox_admm_tpu.adapters import attack as ja
+    from lpbox_admm_tpu.models.policy import build_policy
+    cfg = jconfig.ATTACK_CONFIG.replace(segments=segments)
+    model, variables, labels, targets, Bm, nw = attack_setup_jax(images,
+                                                                 segments)
+    pcfg = jconfig.PolicyConfig(net="mha", node_size=10, chunk_dim=5)
+    out = {"labels": labels.tolist(), "targets": targets.tolist()}
+    for mode in ("plain", "l2f_at"):
+        kw, lam_v = {}, cfg.init_lambda1
+        if mode == "l2f_at":
+            kw = dict(use_l2f=True, policy_model=build_policy("mha"),
+                      policy_variables=flax_variables_from_npz(ATTACK_CKPT),
+                      pcfg=pcfg)
+            lam_v = l2f_lambda
+        lam = jnp.full((len(images),), lam_v, jnp.float32)
+        res = ja.attack_single(model, variables, jnp.asarray(images),
+                               jnp.asarray(targets), jnp.asarray(Bm),
+                               jnp.asarray(nw), cfg, lam, **kw)
+        out[mode] = {"success": [bool(v) for v in np.asarray(res["success"])],
+                     "L0": [int(v) for v in np.asarray(res["L0"])]}
+    out["l2f_at"]["lambda1"] = l2f_lambda
+    return out
+
+
 if __name__ == "__main__":
-    # prints the referee constants of chip_smoke.py's seg phase:
-    #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_port_util.py
+    # prints the referee constants of chip_smoke.py's seg phase, or with
+    # the argument "attack" its attack phase's:
+    #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/torch_port_util.py [attack]
     import json
-    import sys
-    sys.path.insert(0, str(ROOT))
     import chip_smoke
-    print(json.dumps(seg_referee(chip_smoke.seg_images(
-        chip_smoke.SEG_SEED, chip_smoke.SEG_BATCH, *chip_smoke.SEG_GRID))))
+    if sys.argv[1:] == ["attack"]:
+        print(json.dumps(attack_referee(chip_smoke.attack_images(
+            chip_smoke.ATTACK_SEED, chip_smoke.ATTACK_BATCH),
+            chip_smoke.ATTACK_REFEREE["l2f_at"]["lambda1"])))
+    else:
+        print(json.dumps(seg_referee(chip_smoke.seg_images(
+            chip_smoke.SEG_SEED, chip_smoke.SEG_BATCH,
+            *chip_smoke.SEG_GRID))))
