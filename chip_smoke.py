@@ -22,6 +22,18 @@ evaluation of that policy (K1 and K2); one step on the card against the
 same step on the CPU; the checkpoint written in the JAX package's format
 and read back into K2.
 
+Then data parallelism over instances (``parallel.mesh``; the ``dp``
+phase, after training): a world-1 NCCL group in this process solves the
+sharded CA-500 batch with K1 and gathers it back, bit for bit the main
+path's plain solve; two gloo ranks on the one card (spawned, with a
+deadline), 64 instances each, run the plain K1 solve (gathered: the main
+path's bits), the l2f solve (K1, K2: the main path's fixes per instance,
+its gap within 0.1 point) and one training step at full width on 20 480
+rows each (the one-process step's loss and gradient, the same weights on
+both ranks), with two planted faults (BatchNorm over each rank's rows,
+each rank's loss over its own rows) that must cross the step's bound;
+``dp_scaling_table`` at one rank.
+
 The batched-matvec probe (``lpbox_admm_tpu_torch.scripts.probe_dot``,
 the port of the JAX package's ``scripts/probe_dot.py``): its three
 formulations P1-P3 at (8, 256, 256) through the entry point's own
@@ -111,7 +123,7 @@ kernel and the plain version put on different sides of the fix margins
 0.02 and 0.98), P1-P3 against theirs and the float64
 einsum (with a planted fault) and the probe's entry point, the plain
 solve, the l2f solve, K1's exit for done instances from the plain
-solve's end state, the dense-LP options, the train phase, the xl instances, K3 (with two planted faults) and K4 against their
+solve's end state, the dense-LP options, the train phase, the dp phase (45 s), the xl instances, K3 (with two planted faults) and K4 against their
 plain versions on the first block of 8, the xl solve, a packed-symmetric
 window, the xl l2f solve, K2 and K1 against their plain versions on the
 operands the xl l2f solve gave them (its first policy window's 131 072
@@ -121,14 +133,19 @@ rows split into its two kernels by the profiler, with its closed-form L2
 weight bytes and the card's mma.sync TF32 rate from
 ``scripts/tc_rate.py``), and last the train phase's time split under the
 profiler (a ``core.lp`` window of its dataset solves, one optimizer
-step); the whole script under 540 s.
+step); the whole script under 780 s.
 Fails on a build or launch error, a kernel/plain disagreement, a
 planted fault that a kernel's limit does not catch, a repeat launch
 that differs, a one-byte K1 route that differs from the f32 route in
 one bit, a non-finite value, an infeasible instance, a kernel that its path did not
 launch, a K1 launch of the main path on another route than its data
 gives, an l2f mean objective gap above +2% against the plain solve, a
-resumed training whose loss does not fall, a card step that differs
+resumed training whose loss does not fall, a sharded solve (world-1 NCCL
+or two gloo ranks) that differs from the main path's in one bit, a rank
+that fails, hangs or launches neither K1 nor K2, a 2-rank l2f with other
+fixes or a gap more than 0.1 point from the main path's, a
+data-parallel step off the one-process step or a planted dp fault
+within its bound, a card step that differs
 from the CPU step, a compacting evaluation of the trained policy more
 than 10% worse than the plain oracle, an
 xl mean objective more than 10% worse than the JAX package's TPU record,
@@ -173,7 +190,11 @@ CKPT = os.path.join(ROOT, "checkpoints", "ca500_mha", "checkpoint",
                     "best_checkpoint.npz")
 N_ITEMS, N_BIDS, BATCH, SEED = 100, 500, 128, 2207
 REPAIR_ROUNDS, SWAP_ROUNDS = 16, 4
-TOTAL_BUDGET_S = 540           # whole script, build included
+# The whole script, build included, at 65% of the 1200 s a caller allows.
+# A cold run read 346-453 s before the dp phase (27-33 s) was added; on
+# the slowest hosts seen (phases 30-40% slower than those runs'; NVIDIA
+# H100 80GB HBM3, 700 W) it reached the attack phase at 491-498 s.
+TOTAL_BUDGET_S = 780
 # data-sheet figures of the H100 SXM (f32 outside the tensor cores, HBM)
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12       # dense, on the tensor cores
@@ -282,8 +303,9 @@ SEG_BUDGET_S = 90
 # ws 50: K2 on B*3072 rows of 50).
 ATTACK_SEED, ATTACK_BATCH, ATTACK_SEGMENTS = 0, 8, 150
 # the phase's deadline: its eager iterations are host-bound, and the
-# host's speed varies by 30% between calls (PERF.md section 5)
-ATTACK_BUDGET_S = 120
+# host's speed varies between calls (PERF.md section 5): 57-84 s on the
+# hosts of one range, more than 102 s unfinished on one 30-40% slower
+ATTACK_BUDGET_S = 180
 ATTACK_CKPT = os.path.join(ROOT, "checkpoints", "attack_mha", "checkpoint",
                            "best_checkpoint.npz")
 ATTACK_VICTIM = os.path.join(ROOT, "checkpoints", "cifar_victim.npz")
@@ -321,6 +343,28 @@ ATTACK_WINDOW_TOL, ATTACK_GRAD_TOL, ATTACK_REACH = 1e-3, 1e-5, 10
 # 13-18 s on an H100 80GB HBM3 at 700 W, PERF.md section 5); the second
 # round runs the per-image lambda1 update and the merge of rounds.
 ATTACK_SEARCH_ROUNDS = 2
+
+# The data-parallel phase (parallel.mesh; after the train phase, on the
+# main path's CA-500 batch and the train phase's 40 960-row episode batch,
+# written once to an .npz in a temporary directory): a world-1 NCCL group
+# in this process (the plain K1 solve of the sharded batch, gathered, bit
+# for bit the main path's); DP_RANKS gloo ranks on the one card (NCCL
+# takes one rank a card), spawned with a deadline, each on 64 of the 128
+# instances: the plain K1 solve (gathered objectives and solutions bit
+# for bit the main path's, 0 infeasible), l2f_solve_compact at the main
+# path's operating point (K1, K2; fixes per instance the main path's, 0
+# infeasible, the mean gap against the ranks' gathered plain solve within
+# DP_GAP of the main path's; each shard's tail bucket logged, and its
+# objectives bit for bit the main path's where its bucket is the
+# batch's), and one training step from the shipped checkpoint with its
+# Adam state on 20 480 rows a rank (loss within 1e-5 relative and the
+# gradient within STEP_GRAD_TOL of max |g| of the one-process step on
+# the card; parameters the same bits on both ranks).  Two planted faults:
+# BatchNorm on each rank's own rows, which must cross STEP_GRAD_TOL (or,
+# where it does not on this data, the second must), and each rank's loss
+# over its own rows, which must cross it.  Then dp_scaling_table at one
+# rank (a logged row; one card, no scaling claimed).
+DP_RANKS, DP_BUDGET_S, DP_GAP = 2, 45, 0.001
 
 T_START = time.perf_counter()
 
@@ -908,8 +952,9 @@ def train_split(prob, cfg, tr, ts, x, lab, w, W=100, WP=20):
 def train_phase(fused_lp, fused_policy, l2f):
     """The train phase (see TRAIN_ARGS).  Returns the summary, this
     path's K1 and K2 launches (the entry point's and the compacting
-    evaluation's; the checks' launches are not counted), and a function
-    that profiles the phase's time (``train_split``), to be run last."""
+    evaluation's; the checks' launches are not counted), a function
+    that profiles the phase's time (``train_split``), to be run last,
+    and the episode batch (x, labels, weights) of its steps."""
     import tempfile
     import numpy as np
     import torch
@@ -1041,7 +1086,258 @@ def train_phase(fused_lp, fused_policy, l2f):
     # profiler runs without kernel names and the host's dispatch slower
     # in earlier runs of this script
     split = lambda: train_split(run.eval_prob, tr.cfg, tr, ts, x, lab, w)[1]
-    return res, launches, split
+    return res, launches, split, (x, lab, w)
+
+
+def smoke_configs():
+    """The main path's solver and policy configurations."""
+    from lpbox_admm_tpu_torch.config import LP_CONFIG, PolicyConfig
+    return (LP_CONFIG.replace(linsolve="woodbury", incumbent_stride=8),
+            PolicyConfig(net="mha", fix_confidence=0.98, fix_windows=2,
+                         damage_gate=0.25))
+
+
+DP_FIELDS = ("b", "E", "f", "row_mask", "var_mask")
+
+
+def dp_rank(mesh, npz):
+    """One of the dp phase's gloo ranks (spawned): the plain and the l2f
+    solve of its shard, then the step, sound and with each planted fault
+    (``parallel.dryrun.dp_step``).  Rank 0 returns the gathered results
+    and the gradients; every rank its launches, walls, tail bucket, own
+    l2f objectives and parameters after each step."""
+    import importlib
+    import threading
+    import numpy as np
+    import torch
+    from lpbox_admm_tpu_torch.config import PolicyConfig
+    from lpbox_admm_tpu_torch.core import lp
+    from lpbox_admm_tpu_torch.core.problem import LpProblem
+    from lpbox_admm_tpu_torch.models import fused_policy
+    from lpbox_admm_tpu_torch.ops import fused_lp
+    from lpbox_admm_tpu_torch.parallel import dryrun
+    from lpbox_admm_tpu_torch.parallel.mesh import gather_batch, shard_batch
+    from lpbox_admm_tpu_torch.train import l2f
+    from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
+    from lpbox_admm_tpu_torch.utils.profiling import sync
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # torch.optim imports torch._dynamo at its first step: in a fresh
+    # rank that step took 10.8-12.0 s, 1.2 s with the import made in the
+    # background while the solves below wait on the card
+    warm = threading.Thread(target=importlib.import_module,
+                            args=("torch._dynamo",), daemon=True)
+    warm.start()
+    say = lambda msg: log(f"    [rank {mesh.rank}, "
+                          f"{time.perf_counter() - T_START:.1f} s] {msg}")
+    say(f"joined the group on {mesh.device} ({mesh.backend})")
+    cfg, pcfg = smoke_configs()
+    with np.load(npz, allow_pickle=False) as z:
+        prob = LpProblem(**{f: torch.from_numpy(z[f]) for f in DP_FIELDS})
+        rows = tuple(torch.from_numpy(z[k]) for k in ("x", "lab", "w"))
+    shard = shard_batch(prob, mesh)
+    out = {"device": str(mesh.device), "backend": mesh.backend}
+    zero_counts(fused_lp, fused_policy)
+    t0 = time.perf_counter()
+    st = fused_lp.solve_fused(shard, cfg, max_iters=cfg.max_iters,
+                              window=100)
+    _, obj, inf = lp.select_solution(
+        shard, lp.solution(st), lp.solution_best(st),
+        repair_rounds=REPAIR_ROUNDS, swap_rounds=SWAP_ROUNDS)
+    sync(obj)
+    out["plain_s"] = time.perf_counter() - t0
+    out["plain_it"] = st.it
+    out["launches_plain"] = read_counts(fused_lp, fused_policy)
+    say(f"plain solve {out['plain_s']:.2f} s")
+    plain = gather_batch({"obj_k1": lp.objective(st),
+                          "sol_k1": lp.solution(st), "obj": obj,
+                          "inf": inf}, mesh)
+    model = load_policy(CKPT, device=mesh.device)
+    zero_counts(fused_lp, fused_policy)
+    t0 = time.perf_counter()
+    tm = {}
+    _, lo = l2f.l2f_solve_compact(
+        shard, model, cfg, pcfg, ws=100, policy_windows=3,
+        rho_boost_iters=5000, max_iter=10000, repair_rounds=REPAIR_ROUNDS,
+        swap_rounds=SWAP_ROUNDS, timings=tm)
+    sync(lo["obj"])
+    out["l2f_s"] = time.perf_counter() - t0
+    out["launches_l2f"] = read_counts(fused_lp, fused_policy)
+    say(f"l2f solve {out['l2f_s']:.2f} s")
+    out["buckets"] = tm["buckets"]
+    out["routes"] = (tm["policy_route"], tm["tail_route"])
+    out["l2f_obj"] = lo["obj"].cpu()
+    l2f_g = gather_batch({"obj": lo["obj"], "inf": lo["infeasible"],
+                          "n_fixed": lo["n_fixed"]}, mesh)
+    warm.join()
+    steps = {}
+    for plant in (None, "bn", "loss"):
+        t0 = time.perf_counter()
+        r = dryrun.dp_step(mesh, CKPT, rows, "mha", PolicyConfig(net="mha"),
+                           cfg, 100, plant=plant)
+        r["s"] = time.perf_counter() - t0
+        say(f"step (plant {plant}) {r['s']:.2f} s")
+        if mesh.rank:
+            r.pop("grad")
+        steps[str(plant)] = r
+    out["steps"] = steps
+    if mesh.rank == 0:
+        out["plain"] = {k: v.cpu() for k, v in plain.items()}
+        out["l2f"] = {k: v.cpu() for k, v in l2f_g.items()}
+    return out
+
+
+def dp_phase(prob, st, out, tm, gap, rows, budget):
+    """The dp phase (see DP_RANKS).  The ranks start first and run while
+    this process runs the world-1 NCCL solve and the one-process step
+    (a rank's start, with its first step's warm-up, is most of the
+    phase).  Returns the summary and the K1 and K2 launches of each
+    rank's plain and l2f solves."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from lpbox_admm_tpu_torch.core import lp
+    from lpbox_admm_tpu_torch.models import fused_policy
+    from lpbox_admm_tpu_torch.models.policy import build_policy
+    from lpbox_admm_tpu_torch.config import PolicyConfig
+    from lpbox_admm_tpu_torch.ops import fused_lp
+    from lpbox_admm_tpu_torch.parallel import mesh as pm
+    from lpbox_admm_tpu_torch.train import imitation
+    t_start = time.perf_counter()
+    cfg, pcfg = smoke_configs()
+    res = {}
+    x, lab, w = rows
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "dp_batch.npz")
+        np.savez(npz, x=x.cpu().numpy(), lab=lab.cpu().numpy(),
+                 w=w.cpu().numpy(), **{f: getattr(prob, f).cpu().numpy()
+                                       for f in DP_FIELDS})
+        # two ranks on the one card, gloo, in the background; leaving the
+        # pool waits for them (each bounded by the deadline)
+        with ThreadPoolExecutor(1) as pool:
+            t_ranks = time.perf_counter()
+            ranks_f = pool.submit(
+                pm.launch, dp_rank, DP_RANKS, npz,
+                devices=["cuda:0"] * DP_RANKS, backend="gloo",
+                collective_timeout_s=30,
+                timeout_s=budget - (time.perf_counter() - t_start) - 6)
+            # world 1 on NCCL, in this process
+            t0 = time.perf_counter()
+            mesh = pm.init_distributed(
+                num_processes=1, process_id=0, backend="nccl",
+                device="cuda:0", init_method=f"file://{tmp}/nccl_store",
+                timeout_s=30)
+            try:
+                zero_counts(fused_lp, fused_policy)
+                s1 = fused_lp.solve_fused(pm.shard_batch(prob, mesh), cfg,
+                                          max_iters=cfg.max_iters,
+                                          window=100)
+                g1 = pm.gather_batch({"obj": lp.objective(s1),
+                                      "sol": lp.solution(s1)}, mesh)
+                k1_w1 = read_counts(fused_lp, fused_policy)["K1"]
+            finally:
+                dist.destroy_process_group()
+            torch.cuda.synchronize()
+            res["nccl_world1_s"] = time.perf_counter() - t0
+            # the one-process step on the card, the reference of the ranks'
+            t0 = time.perf_counter()
+            tr = imitation.PolicyTrainer(build_policy("mha"),
+                                         PolicyConfig(net="mha"), cfg,
+                                         ws=100, device="cuda")
+            ts, loss1 = tr.train_step(tr.load(CKPT), x, lab, w)
+            loss1 = float(loss1)
+            grad1 = torch.cat([p.grad.reshape(-1).cpu()
+                               for p in ts.model.parameters()])
+            res["step_one_process_s"] = time.perf_counter() - t0
+            ranks = ranks_f.result()
+            res["ranks_s"] = time.perf_counter() - t_ranks
+    same1 = torch_equal(g1["obj"], lp.objective(st)) and \
+        torch_equal(g1["sol"], lp.solution(st))
+    log(f"  world 1 on NCCL: sharded K1 solve and gather "
+        f"{res['nccl_world1_s']:.2f} s, K1 launches {k1_w1}, "
+        f"objectives and solutions bit for bit the main path's: {same1}")
+    require(same1 and k1_w1 > 0, "world-1 NCCL solve = the main path's")
+    r0 = ranks[0]
+    B = prob.batch
+    k = B // DP_RANKS
+    pl, l2 = r0["plain"], r0["l2f"]
+    same_plain = torch_equal(pl["obj_k1"], lp.objective(st).cpu()) and \
+        torch_equal(pl["sol_k1"], lp.solution(st).cpu())
+    n_inf_plain = int((pl["inf"] > 0).sum())
+    gap_dp = ((l2["obj"] - pl["obj"]) / pl["obj"].abs()).mean().item()
+    gap_main = gap.mean().item()
+    same_fixes = torch_equal(l2["n_fixed"], out["n_fixed"].cpu())
+    n_inf_l2f = int((l2["inf"] > 0).sum())
+    buckets = [r["buckets"] for r in ranks]
+    bits = {}
+    for rk, r in enumerate(ranks):
+        if tuple(r["buckets"]) == tuple(tm["buckets"]):
+            bits[rk] = torch_equal(r["l2f_obj"],
+                                   out["obj"][rk * k:(rk + 1) * k].cpu())
+    launches = [{"plain": r["launches_plain"], "l2f": r["launches_l2f"]}
+                for r in ranks]
+    G = float(grad1.abs().max())
+    st0 = r0["steps"]
+    dist_of = lambda name: float((st0[name]["grad"] - grad1).abs().max()) / G
+    d_sound, d_bn, d_loss = dist_of("None"), dist_of("bn"), dist_of("loss")
+    loss_err = abs(st0["None"]["loss"] - loss1) / abs(loss1)
+    same_params = all(torch_equal(ranks[0]["steps"][n]["params"],
+                                  ranks[1]["steps"][n]["params"])
+                      for n in ("None", "bn", "loss"))
+    res.update(
+        ranks=[{k_: r[k_] for k_ in ("device", "backend", "plain_s",
+                                     "plain_it", "l2f_s", "buckets",
+                                     "routes")} for r in ranks],
+        launches=launches, plain_bits=same_plain,
+        plain_infeasible=n_inf_plain, l2f_gap=gap_dp,
+        l2f_gap_main=gap_main, l2f_same_fixes=same_fixes,
+        l2f_infeasible=n_inf_l2f, l2f_bits_where_bucket_equal=bits,
+        main_bucket=tm["buckets"], step_loss_rel_err=loss_err,
+        step_grad=d_sound, plant_bn=d_bn, plant_loss=d_loss,
+        same_params=same_params,
+        step_s={n: [r["steps"][n]["s"] for r in ranks]
+                for n in ("None", "bn", "loss")})
+    log(f"  {DP_RANKS} gloo ranks on one card ({res['ranks_s']:.2f} s "
+        f"with the start): " + "; ".join(
+            f"rank {i} on {r['device']}: plain {r['plain_s']:.2f} s "
+            f"({r['plain_it']} it), l2f {r['l2f_s']:.2f} s, tail bucket "
+            f"{tuple(r['buckets'])}, routes {r['routes']}, launches "
+            f"{launches[i]}" for i, r in enumerate(ranks)))
+    log(f"  gathered plain: bit for bit the main path's {same_plain}, "
+        f"infeasible {n_inf_plain}; l2f: gap {gap_dp:+.4%} (main path "
+        f"{gap_main:+.4%}), fixes per instance the main path's "
+        f"{same_fixes}, infeasible {n_inf_l2f}; the main path's bucket "
+        f"{tuple(tm['buckets'])}, shards with that bucket bit for bit: "
+        f"{bits}")
+    log(f"  DP step, 20 480 rows a rank, against the one-process step on "
+        f"the card: loss rel. error {loss_err:.3e}, gradient "
+        f"{d_sound:.3e} of max |g|; planted per-rank BatchNorm "
+        f"{d_bn:.3e}, planted per-rank loss normalisation {d_loss:.3e} "
+        f"(bound {STEP_GRAD_TOL}); parameters equal on both ranks "
+        f"{same_params}; step seconds {res['step_s']}")
+    require(same_plain and n_inf_plain == 0,
+            "2-rank plain solve: the main path's bits, 0 infeasible")
+    require(all(l_["plain"]["K1"] > 0 and l_["l2f"]["K1"] > 0
+                and l_["l2f"]["K2"] > 0 for l_ in launches),
+            f"every rank launched K1 and K2: {launches}")
+    require(same_fixes and n_inf_l2f == 0,
+            "2-rank l2f: the main path's fixes, 0 infeasible")
+    require(abs(gap_dp - gap_main) <= DP_GAP,
+            f"2-rank l2f gap within {DP_GAP:.1%} of the main path's")
+    require(all(bits.values()), f"shards with the batch's bucket: {bits}")
+    require(loss_err <= 1e-5 and d_sound <= STEP_GRAD_TOL and same_params,
+            "DP step = the one-process step on the card")
+    require(d_loss > STEP_GRAD_TOL and (d_bn > STEP_GRAD_TOL
+                                        or d_loss > STEP_GRAD_TOL),
+            "the planted faults cross STEP_GRAD_TOL")
+    t0 = time.perf_counter()
+    res["dp_scaling"] = pm.dp_scaling_table(prob, cfg, iters=200,
+                                            device_counts=(1,), reps=2)
+    log(f"  dp_scaling_table at one rank ({time.perf_counter() - t0:.2f} "
+        f"s): {res['dp_scaling']}")
+    return res, launches
 
 
 def k1_done_check(st, prob, cfg, fused_lp, compare):
@@ -2646,9 +2942,17 @@ def run(workers):
     # --- training: the entry point and the compacting evaluation, counts
     # from 0 before each, read after each -----------------------------------
     with Phase("train", 300) as ph:
-        summary["train"], train_launches, train_split_fn = train_phase(
-            fused_lp, fused_policy, l2f)
+        summary["train"], train_launches, train_split_fn, train_rows = \
+            train_phase(fused_lp, fused_policy, l2f)
     summary["train_s"] = ph.seconds
+
+    # --- data parallelism: each rank's K1 and K2 counts from 0 before its
+    # plain and its l2f solve, read after each --------------------------------
+    with Phase("dp", DP_BUDGET_S) as ph:
+        summary["dp"], dp_launches = dp_phase(prob, st, out, tm, gap,
+                                              train_rows, DP_BUDGET_S)
+    summary["dp_s"] = ph.seconds
+    del train_rows
 
     # --- the large rung: the reference's xl instances --------------------
     from lpbox_admm_tpu_torch.ops import fused_stream, symm
@@ -2865,6 +3169,9 @@ def run(workers):
         kernels[0]["launches_train"] = train_launches["K1"]
         kernels[1]["launches_train"] = train_launches["K2"]
         kernels[0]["launches_lp_options"] = auto_k1
+        kernels[0]["launches_dp"] = [l_["plain"]["K1"] + l_["l2f"]["K1"]
+                                     for l_ in dp_launches]
+        kernels[1]["launches_dp"] = [l_["l2f"]["K2"] for l_ in dp_launches]
         kernels[1]["launches_mega"] = mega_k2
         kernels[1]["launches_mega_train"] = mega_train_k2
         kernels[1]["launches_seg"] = seg_k2

@@ -76,7 +76,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                             "contrast_mean"],
                    help="noise sensitivity weighting (utils.py:144)")
     args = p.parse_args(argv)
-    check_ported(args)
+    check_ported(args, data_parallel=False)
     return args
 
 

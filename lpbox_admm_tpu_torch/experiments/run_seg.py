@@ -94,7 +94,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="1 = ignore the net's sigmoid entirely (pure "
                         "trajectory fixing)")
     args = p.parse_args(argv)
-    check_ported(args)
+    check_ported(args, data_parallel=False)
     return args
 
 

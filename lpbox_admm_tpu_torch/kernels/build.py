@@ -8,11 +8,20 @@ lands in ``lpbox_admm_tpu_torch/_build/`` (git-ignored) under a name
 that carries the hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is reused.  ``nvcc`` comes from
 ``$CUDA_HOME/bin`` or ``PATH``; without it the build raises.
+
+Processes that start together (the ranks of ``parallel.mesh``) build
+once: a process that finds the library missing takes an exclusive lock
+on a file beside it (``flock``, released by the kernel if the holder
+dies) and builds only if the library is still missing once it holds
+the lock; the others wait on the lock and load what it built.  The
+data-parallel entry points build in the parent before they start the
+ranks.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -58,16 +67,41 @@ def nvcc_path() -> str:
     return found
 
 
+#: how long a process waits for another one's build
+LOCK_WAIT_S = 1200
+
+
 def build() -> Path:
     """Compile all kernels into one library (skipped when a library of
     the same source hash exists); returns its path."""
     lib = BUILD_DIR / f"liblpbox_kernels_{source_hash()}.so"
-    if lib.exists():
-        if BUILD_INFO.get("path") != str(lib):   # built by another process
-            BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
-        return lib
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(lib.with_name(lib.name + ".lock"), "w") as lock:
+            t0 = time.monotonic()
+            while True:
+                try:
+                    fcntl.flock(lock, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                    break
+                except BlockingIOError:
+                    if time.monotonic() - t0 > LOCK_WAIT_S:
+                        raise RuntimeError(
+                            f"waited {LOCK_WAIT_S} s for another process's "
+                            f"build of {lib.name}")
+                    time.sleep(0.2)
+            try:
+                if not lib.exists():
+                    return _compile(lib)
+            finally:
+                fcntl.flock(lock, fcntl.LOCK_UN)
+    if BUILD_INFO.get("path") != str(lib):   # built by another process
+        BUILD_INFO.update(path=str(lib), seconds=0.0, cached=True)
+    return lib
+
+
+def _compile(lib: Path) -> Path:
+    """Build ``lib`` with nvcc (the caller holds the build lock)."""
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
     tmp = lib.with_name(f"{lib.name}.{tag}")
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources()]

@@ -93,19 +93,59 @@ class BatchNorm(nn.BatchNorm1d):
     its backward pass then loses the gradient's accuracy
     (``tests/test_torch_imitation.py`` prints both against the float64
     gradient).  In evaluation mode it is ``BatchNorm1d``'s
-    running-statistics affine."""
+    running-statistics affine.
+
+    With ``mesh`` set to a data-parallel mesh of more than one rank
+    (``set_batchnorm_mesh``), training mode normalizes with the moments
+    of the global batch, as flax's BatchNorm over a sharded batch does:
+    the mean is the all-reduced sum of the rows over the all-reduced row
+    count, the variance the all-reduced sum of (x - mean)^2 over that
+    count (the same two passes), both all-reduces differentiable, so
+    that the backward pass is the global one, and the running statistics
+    take the global moments, the same on every rank.  Without a mesh the
+    module is as described above, bit for bit."""
+
+    mesh = None
+
+    def __getstate__(self):
+        # a process group does not pickle; a module sent elsewhere leaves
+        # its mesh behind
+        state = dict(super().__getstate__())
+        state.pop("mesh", None)
+        return state
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mean = x.mean(0)
-        xc = x - mean
-        var = (xc * xc).mean(0)
+        mesh = self.mesh
+        if mesh is None or mesh.world == 1:
+            mean = x.mean(0)
+            xc = x - mean
+            var = (xc * xc).mean(0)
+        else:
+            from ..parallel.mesh import all_reduce_sum
+            s = all_reduce_sum(torch.cat([x.sum(0),
+                                          x.new_full((1,), x.shape[0])]),
+                               mesh)
+            n = s[-1]
+            mean = s[:-1] / n
+            xc = x - mean
+            var = all_reduce_sum((xc * xc).sum(0), mesh) / n
         with torch.no_grad():
             mo = self.momentum
             self.running_mean.mul_(1.0 - mo).add_(mo * mean)
             self.running_var.mul_(1.0 - mo).add_(mo * var)
         return xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
+def set_batchnorm_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Give every ``BatchNorm`` of ``model`` the data-parallel ``mesh``
+    whose global batch it normalizes over in training mode (None: each
+    rank's own rows)."""
+    for mod in model.modules():
+        if isinstance(mod, BatchNorm):
+            mod.mesh = mesh
+    return model
 
 
 class MHALayer(nn.Module):
@@ -166,7 +206,7 @@ class _Encoder(nn.Module):
         h = self.embed(x)
         for layer in self.layers:
             h = layer(h)
-        logit = self.classifier(h.reshape(B, -1))
+        logit = self.classifier(h.flatten(1))
         return logit, torch.sigmoid(logit)
 
 

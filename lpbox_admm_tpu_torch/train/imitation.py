@@ -31,6 +31,20 @@ schedule: update k (counted from 0, before the increment, as
 ``ScaleByScheduleState`` counts) uses ``lr * rate ** (k //
 lr_decay_step)``.  Checkpoints are the JAX package's ``.npz``
 (``utils.checkpoint``), readable by either package.
+
+Data parallelism over instances (``parallel.mesh``; the JAX package
+shards the batch and lets jit insert the collectives): a trainer made
+with a ``mesh`` of more than one rank takes each rank's rows of the
+global batch.  Its step is the single-process step over the global
+batch: the micro-chunks are the global batch's (a rank takes its rows
+of each, possibly none, and the last rank the zero padding), BatchNorm
+normalizes over the global chunk (``models.policy.BatchNorm``), each
+rank's loss is its Σ w·bce over the global row count, and the gradients
+and the loss are all-reduced with a sum, so the parameters stay the
+same, bit for bit, on every rank.  ``build_dataset`` on a shard takes
+the largest ``oracle_iters`` and ``oracle_wall_s`` over the ranks, and
+``evaluate`` gathers its per-instance metrics before any mean.  Rank 0
+alone writes checkpoints.
 """
 
 from __future__ import annotations
@@ -47,7 +61,9 @@ from torch import nn
 from ..config import LP_CONFIG, PolicyConfig, SolverConfig
 from ..core import lp, qp
 from ..core.problem import Device, LpProblem, as_device
-from ..models.policy import init_weights
+from ..models.policy import init_weights, set_batchnorm_mesh
+from ..parallel.mesh import (Mesh, all_reduce_, all_reduce_max,
+                             gather_batch, replicate)
 from ..utils.checkpoint import (adam_arrays, load_adam_arrays,
                                 variable_arrays, variables_from_arrays)
 from ..utils.profiling import sync
@@ -106,8 +122,8 @@ def _record_then_converge(prob: LpProblem, cfg: SolverConfig,
 
 def build_dataset(prob: LpProblem, cfg: SolverConfig,
                   record_iters: int = 1000,
-                  damage_alpha: Optional[float] = None
-                  ) -> TrajectoryDataset:
+                  damage_alpha: Optional[float] = None,
+                  mesh: Optional[Mesh] = None) -> TrajectoryDataset:
     """Run plain ADMM, recording the first ``record_iters`` iterations
     (the reference's xiter CSVs) and the converged rounding as labels
     (getLabel: final iterate >= 0.5, trainer.py:80-90).
@@ -117,18 +133,23 @@ def build_dataset(prob: LpProblem, cfg: SolverConfig,
     (``core.lp.select_solution``), as solve callers report it;
     ``oracle_wall_s`` times the plain batch solve up to a device
     synchronisation (the denominator of the reference's time speedup,
-    trainer.py:560)."""
+    trainer.py:560).  On a rank's shard (``mesh``) both are the largest
+    over the ranks: the batch's iterations and wall."""
     t0 = time.perf_counter()
     state, traj = _record_then_converge(prob, cfg, record_iters)
     sync(state.x)
     wall = time.perf_counter() - t0
+    iters = int(state.it)
+    if mesh is not None:
+        iters = all_reduce_max(iters, mesh)
+        wall = all_reduce_max(wall, mesh)
     labels = lp.solution(state)
     _, oracle, _ = lp.select_solution(prob, labels, lp.solution_best(state))
     dmg = (damage_weights(prob, labels, alpha=damage_alpha)
            if damage_alpha is not None else None)
     return TrajectoryDataset(
         traj=traj, labels=labels, var_mask=prob.var_mask, oracle_obj=oracle,
-        oracle_iters=int(state.it), oracle_wall_s=wall, damage=dmg)
+        oracle_iters=iters, oracle_wall_s=wall, damage=dmg)
 
 
 def build_dataset_qp(prob: qp.QpProblem, cfg: SolverConfig,
@@ -185,13 +206,23 @@ def episode_batch(ds: TrajectoryDataset, pcfg: PolicyConfig, ws: int,
     return torch.cat(xs), labels, torch.cat(wts)
 
 
+def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return -labels * F.logsigmoid(logits) \
+        - (1.0 - labels) * F.logsigmoid(-logits)
+
+
 def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
                  weight: torch.Tensor) -> torch.Tensor:
     """``BCEWithLogitsLoss(weight=w)``: the mean over all elements of
     w * bce(logit, label), bce in optax's log-sigmoid form."""
-    bce = -labels * F.logsigmoid(logits) \
-        - (1.0 - labels) * F.logsigmoid(-logits)
-    return (weight * bce).mean()
+    return (weight * _bce(logits, labels)).mean()
+
+
+def weighted_bce_sum(logits: torch.Tensor, labels: torch.Tensor,
+                     weight: torch.Tensor) -> torch.Tensor:
+    """The sum over the rows of w * bce(logit, label): a rank's share of
+    the global loss before it is divided by the global row count."""
+    return (weight * _bce(logits, labels)).sum()
 
 
 class TrainState(NamedTuple):
@@ -248,13 +279,18 @@ def load_checkpoint(path: str, model: nn.Module,
 class PolicyTrainer:
     """Imitation training + in-loop l2f evaluation (the reference's
     PolicyKL).  The module trains on ``device`` (the card unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU), or with a data-parallel ``mesh`` on the
+    rank's device, its BatchNorm layers normalizing over the global
+    batch."""
 
     def __init__(self, model: nn.Module, pcfg: PolicyConfig,
                  cfg: SolverConfig = LP_CONFIG, ws: int = 100,
                  save_dir: Optional[str] = None, micro_rows: int = 16384,
-                 device: Device = "cuda"):
-        self.device = as_device(device)
+                 device: Device = "cuda", mesh: Optional[Mesh] = None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else as_device(device)
+        if self._dp:
+            set_batchnorm_mesh(model, mesh)
         self.model = model.to(self.device)
         self.pcfg = pcfg
         self.cfg = cfg
@@ -275,8 +311,20 @@ class PolicyTrainer:
             generator = torch.Generator().manual_seed(generator)
         init_weights(self.model.cpu(), generator)
         self.model.to(self.device).eval()
-        return TrainState(model=self.model,
-                          optimizer=_adam(self.model, self.pcfg), step=0)
+        return self._replicated(TrainState(
+            model=self.model, optimizer=_adam(self.model, self.pcfg),
+            step=0))
+
+    def _replicated(self, ts: TrainState) -> TrainState:
+        """Rank 0's weights and Adam state on every rank."""
+        if self._dp:
+            replicate(ts, self.mesh)
+        return ts
+
+    @property
+    def _dp(self) -> bool:
+        """Data parallel: a mesh of more than one rank."""
+        return self.mesh is not None and self.mesh.world > 1
 
     def variables(self, ts: TrainState) -> nn.Module:
         """The policy as the l2f solvers take it: the module, in
@@ -284,10 +332,17 @@ class PolicyTrainer:
         return ts.model.eval()
 
     def train_step(self, ts: TrainState, x: torch.Tensor,
-                   labels: torch.Tensor, weight: torch.Tensor
+                   labels: torch.Tensor, weight: torch.Tensor,
+                   positions: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, torch.Tensor]:
         """One optimizer step on the rows (R, node, chunk); returns the
-        state and the loss (the weighted BCE over the R rows)."""
+        state and the loss (the weighted BCE over the R rows).  Under a
+        mesh of more than one rank the rows are this rank's part of the
+        global batch, at the global ``positions`` (by default the rank's
+        contiguous block in rank order), and the loss is the global
+        one."""
+        if self._dp:
+            return self._train_step_dp(ts, x, labels, weight, positions)
         model, opt = ts.model, ts.optimizer
         x, labels, weight = (t.to(self.device).float()
                              for t in (x, labels, weight))
@@ -311,11 +366,77 @@ class PolicyTrainer:
                 loss = loss + lk.detach()
         finally:
             model.eval()
+        return self._apply(ts), loss
+
+    def _apply(self, ts: TrainState) -> TrainState:
+        """The optimizer update at the schedule's learning rate."""
+        opt = ts.optimizer
         lr = self.lr_at(adam_count(opt))
         for g in opt.param_groups:
             g["lr"] = lr
         opt.step()
-        return ts._replace(step=ts.step + 1), loss
+        return ts._replace(step=ts.step + 1)
+
+    def _train_step_dp(self, ts, x, labels, weight, positions):
+        """The data-parallel step (see the module docstring): the global
+        batch's micro-chunks, this rank's rows of each at their global
+        positions, the zero padding on the last rank, each chunk's loss
+        Σ w·bce over the global row count R, then the sum over ranks of
+        the gradients (one flat all-reduce) and of the loss."""
+        mesh, model = self.mesh, ts.model
+        x, labels, weight = (t.to(self.device).float()
+                             for t in (x, labels, weight))
+        n_loc = x.shape[0]
+        counts = gather_batch(torch.tensor([n_loc], device=self.device),
+                              mesh).tolist()
+        R, off = sum(counts), sum(counts[:mesh.rank])
+        if positions is None:
+            positions = torch.arange(off, off + n_loc, device=self.device)
+        positions = positions.to(self.device)
+        M = self.micro_rows if R > self.micro_rows else R
+        n_chunks = -(-R // M)
+        pad = n_chunks * M - R
+        if pad and mesh.rank == mesh.world - 1:
+            zpad = lambda t: torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+            x, labels, weight = zpad(x), zpad(labels), zpad(weight)
+            positions = torch.cat([positions, torch.arange(
+                R, R + pad, device=self.device)])
+        chunk_of = positions // M
+        ts.optimizer.zero_grad(set_to_none=True)
+        model.train()
+        try:
+            loss = torch.zeros((), device=self.device)
+            for c in range(n_chunks):
+                sel = (chunk_of == c).nonzero()[:, 0]
+                logits, _ = model(x[sel])
+                lk = weighted_bce_sum(logits[:, 0], labels[sel],
+                                      weight[sel]) / R
+                lk.backward()
+                loss = loss + lk.detach()
+        finally:
+            model.eval()
+        params = list(model.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None
+                           else torch.zeros_like(p)).reshape(-1)
+                          for p in params])
+        all_reduce_(flat, mesh)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p).clone()
+        all_reduce_(loss, mesh)
+        return self._apply(ts), loss
+
+    def _episode_positions(self, ds: TrajectoryDataset,
+                          n_episodes: int = 10) -> torch.Tensor:
+        """The global positions of the rows of ``episode_batch`` on this
+        rank's shard of a dataset: episode-major over the global batch's
+        instances, as the single-process episode batch orders them."""
+        B_loc = ds.traj.shape[0]
+        n = ds.traj.reshape(B_loc, -1, ds.traj.shape[-1]).shape[1]
+        counts = gather_batch(torch.tensor([B_loc], device=self.device),
+                              self.mesh).tolist()
+        B, off = sum(counts), sum(counts[:self.mesh.rank])
+        local = torch.arange(B_loc * n, device=self.device) + off * n
+        return torch.cat([e * B * n + local for e in range(n_episodes)])
 
     def train_epoch(self, ts: TrainState,
                     datasets: Iterable[TrajectoryDataset],
@@ -327,7 +448,9 @@ class PolicyTrainer:
         for ds in datasets:
             x, labels, weight = episode_batch(ds, self.pcfg, self.ws,
                                               n_episodes)
-            ts, loss = self.train_step(ts, x, labels, weight)
+            pos = self._episode_positions(ds, n_episodes) if self._dp \
+                else None
+            ts, loss = self.train_step(ts, x, labels, weight, pos)
             losses.append(float(loss))
         return ts, float(np.mean(losses))
 
@@ -338,7 +461,11 @@ class PolicyTrainer:
         objective gap, speedup, fix errors).  ``compact=True`` runs
         ``l2f_solve_compact`` (on the card: K1 where it holds the shape,
         K2); the default runs the mask-based ``l2f_solve`` (on the card:
-        K2).  Walls end on a device synchronisation."""
+        K2).  Walls end on a device synchronisation.  On a rank's shard
+        (the trainer's mesh) the per-instance metrics are gathered over
+        the ranks before any mean, and the iterations and the wall are
+        the largest over them."""
+        mesh = self.mesh if self._dp else None
         model = self.variables(ts)
         t0 = time.perf_counter()
         if compact:
@@ -346,25 +473,29 @@ class PolicyTrainer:
                                       ws=self.ws, max_iter=max_iter)
             sync(oc["solution"])
             wall = time.perf_counter() - t0
-            obj = oc["obj"].cpu().numpy()
-            orc = ds.oracle_obj.cpu().numpy()
-            out = {
-                "obj": obj, "obj_gap": (obj - orc) / np.abs(orc),
-                "iterations": int(oc["iterations"]),
-                "infeasible": oc["infeasible"].cpu().numpy(),
-                "n_fixed": oc["n_fixed"].cpu().numpy(),
-                "fix_errors": (oc["fixed_mask"] & (oc["fixed_val"]
-                                                   != ds.labels)).sum(-1)
-                .cpu().numpy(),
-            }
+            m = {"obj": oc["obj"], "oracle": ds.oracle_obj,
+                 "infeasible": oc["infeasible"], "n_fixed": oc["n_fixed"],
+                 "fix_errors": (oc["fixed_mask"]
+                                & (oc["fixed_val"] != ds.labels)).sum(-1)}
+            if mesh is not None:
+                m = gather_batch(m, mesh)
+            m = {k: v.cpu().numpy() for k, v in m.items()}
+            orc = m.pop("oracle")
+            out = dict(m, obj_gap=(m["obj"] - orc) / np.abs(orc),
+                       iterations=int(oc["iterations"]))
         else:
             state = l2f_solve(prob, model, self.cfg, self.pcfg, ws=self.ws,
                               max_iter=max_iter)
             sync(state.x)
             wall = time.perf_counter() - t0
             m = l2f_metrics(state, prob, ds.oracle_obj, ds.labels)
+            if mesh is not None:
+                m = gather_batch(m, mesh)
             out = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor)
                        else v) for k, v in m.items()}
+        if mesh is not None:
+            out["iterations"] = all_reduce_max(int(out["iterations"]), mesh)
+            wall = all_reduce_max(wall, mesh)
         out["wall_time_s"] = wall
         out["mean_obj_gap"] = float(np.mean(out["obj_gap"]))
         out["iter_speedup"] = float(ds.oracle_iters) / max(
@@ -376,8 +507,10 @@ class PolicyTrainer:
     # ---- checkpoints (reference trainer.py:599-643) ----------------------
     def save(self, ts: TrainState, epoch: int, best: bool = False):
         """``{save_dir}/checkpoint/checkpoint_{epoch}.npz`` or
-        ``best_checkpoint.npz`` in the JAX package's format."""
-        if not self.save_dir:
+        ``best_checkpoint.npz`` in the JAX package's format; under a mesh
+        rank 0 alone writes."""
+        if not self.save_dir or (self.mesh is not None
+                                 and self.mesh.rank != 0):
             return
         os.makedirs(os.path.join(self.save_dir, "checkpoint"), exist_ok=True)
         name = "best_checkpoint.npz" if best else f"checkpoint_{epoch}.npz"
@@ -386,9 +519,9 @@ class PolicyTrainer:
 
     def load(self, path: str) -> TrainState:
         """The trainer's module and a new Adam, from a checkpoint of
-        either package."""
-        return load_checkpoint(path, self.model, _adam(self.model,
-                                                       self.pcfg))
+        either package (under a mesh, rank 0's, on every rank)."""
+        return self._replicated(load_checkpoint(
+            path, self.model, _adam(self.model, self.pcfg)))
 
     def train(self, ts: TrainState, datasets, eval_prob: LpProblem,
               eval_ds: TrajectoryDataset, num_epochs: Optional[int] = None,

@@ -15,12 +15,22 @@ The write side: ``variable_arrays`` is the inverse map, and
 state to and from the leaves of ``optax.adam(schedule)``'s state --
 the Adam count (int32), every first moment in flax's sorted-path order
 (``param_paths``), every second moment, then the schedule's count.
+
+Any solver state, dataset or other container of tensors
+(``utils.tree``: the port's frozen dataclasses, NamedTuples, tuples,
+dicts) checkpoints with ``save_pytree`` / ``load_pytree`` /
+``load_meta`` in the JAX package's format: an ``.npz`` of the leaves in
+order as ``leaf/%05d`` and a JSON ``meta`` entry, no pickle.  Loading
+needs an ``example`` of the same structure (an ``init_state(...)`` of
+the same shapes) and checks every leaf's shape and dtype against it.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
-from typing import Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -28,6 +38,7 @@ from torch import nn
 
 from ..core.problem import Device, as_device
 from ..models.policy import build_policy
+from ..utils.tree import leaves as tree_leaves, unflatten
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
@@ -210,3 +221,56 @@ def load_policy(path: str, node_size: int = 20, chunk_dim: int = 5,
                          out_dim=out_dim)
     model.load_state_dict(sd, strict=True)
     return model.to(as_device(device)).eval()
+
+
+def _leaf_array(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_pytree(path: str, tree: Any, meta: Optional[dict] = None) -> None:
+    """Write ``tree``'s leaves (tensors from any device, numpy arrays,
+    Python numbers) in order and ``meta`` as JSON."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrs = {f"leaf/{i:05d}": _leaf_array(leaf)
+            for i, leaf in enumerate(tree_leaves(tree))}
+    arrs["meta"] = np.frombuffer(json.dumps(meta or {}).encode(),
+                                 dtype=np.uint8)
+    with open(path, "wb") as f:
+        np.savez(f, **arrs)
+
+
+def load_pytree(path: str, example: Any) -> Any:
+    """A tree saved by ``save_pytree`` (either package's) restored into
+    the structure of ``example``: tensors on the example's devices,
+    Python numbers as Python numbers.  A leaf whose shape or dtype is
+    not the example's raises, naming the leaf."""
+    want = tree_leaves(example)
+    with np.load(path, allow_pickle=False) as z:
+        keys = sorted(k for k in z.files if k.startswith("leaf/"))
+        if len(keys) != len(want):
+            raise ValueError(f"checkpoint has {len(keys)} leaves, example "
+                             f"has {len(want)}")
+        got = [z[k] for k in keys]
+    out = []
+    for i, (a, w) in enumerate(zip(got, want)):
+        wa = _leaf_array(w)
+        if a.shape != wa.shape or a.dtype != wa.dtype:
+            raise ValueError(
+                f"checkpoint leaf {i} ({keys[i]}) has shape {a.shape} dtype "
+                f"{a.dtype}, example expects shape {wa.shape} dtype "
+                f"{wa.dtype}")
+        if isinstance(w, torch.Tensor):
+            out.append(torch.from_numpy(np.array(a)).to(w.device))
+        elif isinstance(w, (bool, int, float)):
+            out.append(type(w)(a))
+        else:
+            out.append(a)
+    return unflatten(example, out)
+
+
+def load_meta(path: str) -> dict:
+    """The ``meta`` entry of a ``save_pytree`` checkpoint."""
+    with np.load(path, allow_pickle=False) as z:
+        return json.loads(bytes(z["meta"]).decode())

@@ -3,9 +3,11 @@
 presets of ``experiments/01_run_train.sh`` / ``02_run_test.sh``).
 
 The same flags with the same defaults, plus ``-device`` (``cuda``
-unless the caller asks for ``cpu``).  ``check_ported`` refuses, with a
-``ValueError`` naming what is missing, the settings whose code is not
-in the port: ``-mesh > 0`` (data parallelism over devices).
+unless the caller asks for ``cpu``).  ``-mesh N`` runs the CA driver
+(``experiments/run_lp``) in N data-parallel ranks (``parallel.mesh``);
+``check_ported`` refuses it, with a ``ValueError`` naming it, for the
+drivers that do not shard their workload (``run_seg``, ``run_attack``:
+the JAX package's drivers of those workloads ignore the flag).
 """
 
 from __future__ import annotations
@@ -47,8 +49,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("-data_dir", default="data",
                    help="instance/trajectory data root")
     p.add_argument("-mesh", type=int, default=0,
-                   help="data-parallel mesh size (0 = single device; the "
-                        "port runs on one device only)")
+                   help="data-parallel mesh size (0 = single device; N: "
+                        "N ranks, one a card, gloo processes with "
+                        "-device cpu; run_lp only)")
     p.add_argument("-damage_gate", type=float, default=0.0,
                    help="risk-calibrated fixing: shrink the confidence "
                         "margin with the variable's |b| rank "
@@ -70,9 +73,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Refuse the settings the port does not implement."""
-    if getattr(args, "mesh", 0) > 0:
-        raise ValueError(f"-mesh {args.mesh}: data parallelism over "
-                         "devices (the JAX package's parallel/mesh.py) is "
-                         "not ported; run with -mesh 0")
+def check_ported(args: argparse.Namespace,
+                 data_parallel: bool = True) -> None:
+    """Refuse the settings the calling driver does not implement:
+    ``-mesh > 0`` where the driver does not shard its workload
+    (``data_parallel=False``)."""
+    if not data_parallel and getattr(args, "mesh", 0) > 0:
+        raise ValueError(f"-mesh {args.mesh}: this driver does not shard "
+                         "its workload over devices (data parallelism runs "
+                         "in experiments.run_lp only); run with -mesh 0")

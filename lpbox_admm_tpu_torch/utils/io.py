@@ -7,13 +7,16 @@ The port of the JAX package's ``utils/io.py``:
   LPboxADMMsolver.cpp:1081; reader get_lpbox_info, trainer.py:189-201);
 * ``write_xiter_csv`` / ``read_xiter_csv``: per-iteration trajectory
   dumps ``Iter{i},v0,...,vn-1`` (xiter writer, LPboxADMMsolver.cpp:
-  903-909; reader readFile, trainer.py:32-48).
+  903-909; reader readFile, trainer.py:32-48);
+* ``SolverLog``: the per-instance iteration log (does_log path,
+  LPboxADMMsolver.cpp:1013-1067), the JAX package's text.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List
+import time
+from typing import List, Optional
 
 import numpy as np
 
@@ -58,3 +61,42 @@ def read_xiter_csv(path: str) -> np.ndarray:
                 continue
             rows.append([float(v) for v in parts[1:]])
     return np.asarray(rows).T
+
+
+class SolverLog:
+    """Per-instance iteration log in the form of the reference's
+    ``does_log`` output (norms of the splitting variables per iteration,
+    LPboxADMMsolver.cpp:1027-1066); nothing is written without a
+    path."""
+
+    def __init__(self, path: Optional[str]):
+        self.path = path
+        self._start = time.time()
+        self._f = None
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "w")
+
+    def iteration(self, it: int, **norms: float):
+        if not self._f:
+            return
+        self._f.write(f"Iteration: {it}\n")
+        for k, v in norms.items():
+            self._f.write(f"norm of {k}: {v:.9f}\n")
+        self._f.write(f"Time elapsed: {time.time() - self._start:f}s\n")
+        self._f.write("-" * 49 + "\n")
+
+    def message(self, msg: str):
+        if self._f:
+            self._f.write(msg + "\n")
+
+    def close(self):
+        if self._f:
+            self._f.close()
+            self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

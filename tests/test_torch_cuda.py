@@ -643,3 +643,28 @@ def test_attack_l2f_scores_with_k2(cuda):
                             policy_model=policy, pcfg=pcfg)
     assert fused_policy.LAUNCHES == before + 2
     assert bool(torch.isfinite(G).all())
+
+
+def test_world1_nccl_shard_solve_gather(prob, tmp_path):
+    """A world-1 NCCL group (``parallel.mesh``): the shard of the whole
+    batch solved with K1 and gathered back through NCCL is the unsharded
+    solve bit for bit, and the largest iteration count is its own."""
+    import torch.distributed as dist
+    from lpbox_admm_tpu_torch.parallel import mesh as pm
+    ref = fused_lp.solve_fused(prob, CFG, max_iters=2000, window=100)
+    mesh = pm.init_distributed(num_processes=1, process_id=0,
+                               backend="nccl", device=prob.device,
+                               init_method=f"file://{tmp_path}/store",
+                               timeout_s=30)
+    try:
+        assert (mesh.world, mesh.backend) == (1, "nccl")
+        st = fused_lp.solve_fused(pm.shard_batch(prob, mesh), CFG,
+                                  max_iters=2000, window=100)
+        got = pm.gather_batch({"obj": lp.objective(st), "x": st.x,
+                               "done": st.done}, mesh)
+        it = pm.all_reduce_max(st.it, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got["obj"], lp.objective(ref))
+    assert torch.equal(got["x"], ref.x) and torch.equal(got["done"], ref.done)
+    assert it == ref.it

@@ -46,7 +46,8 @@ from lpbox_admm_tpu_torch.train import imitation as tim
 from lpbox_admm_tpu_torch.utils import checkpoint as tck
 
 from torch_port_util import (CKPT, ca_instances, flat_variables,
-                             flax_variables_from_npz, np_of, problems)
+                             flax_variables_from_npz, jax_grads, np_of,
+                             port_grads as _port_grads, problems)
 
 CFG_J = JLP.replace(linsolve="woodbury")
 CFG_T = TLP.replace(linsolve="woodbury")
@@ -87,53 +88,6 @@ def _leaves(params):
 def _tree_like(params, leaves):
     return jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(params), [jnp.asarray(a) for a in leaves])
-
-
-def jax_grads(jt, params, stats, x, lab, w, dtype):
-    """``PolicyTrainer._train_step_impl``'s chunk loop, op by op, with the
-    parameters, statistics and rows cast to ``dtype`` (float64 under
-    ``jax.enable_x64``): rows zero-padded to a multiple of
-    ``micro_rows``, each chunk's loss scaled by chunk_rows / R, the
-    statistics chained, the gradients summed.  Returns the loss, the
-    statistics and the gradient leaves (float64 numpy)."""
-    R = x.shape[0]
-    pad = (-R) % jt.micro_rows
-    xp, lp_, wp = (np.concatenate([a, np.zeros((pad,) + a.shape[1:],
-                                               np.float32)]).astype(dtype)
-                   for a in (x, lab, w))
-    with jax.enable_x64(dtype == np.float64):
-        cast = lambda t: jax.tree_util.tree_map(
-            lambda a: jnp.asarray(np.asarray(a, dtype)), t)
-        params, stats = cast(params), cast(stats)
-        loss, acc = 0.0, None
-        for c in range(0, R + pad, jt.micro_rows):
-            xc, lc, wc = (jnp.asarray(a[c:c + jt.micro_rows])
-                          for a in (xp, lp_, wp))
-
-            def chunk_loss(p, s):
-                (logits, _), mut = jt.model.apply(
-                    {"params": p, "batch_stats": s}, xc, train=True,
-                    mutable=["batch_stats"])
-                return jim.weighted_bce(logits[:, 0], lc, wc) \
-                    * (xc.shape[0] / R), mut["batch_stats"]
-
-            (lk, stats), g = jax.value_and_grad(chunk_loss, has_aux=True)(
-                params, stats)
-            assert lk.dtype == dtype
-            loss += float(lk)
-            acc = g if acc is None else jax.tree_util.tree_map(
-                lambda a, b: a + b, acc, g)
-        stats = jax.tree_util.tree_map(np.asarray, stats)
-        return loss, stats, [np.asarray(a, np.float64) for a in
-                             jax.tree_util.tree_leaves(acc)]
-
-
-def _port_grads(model):
-    """The port's gradient leaves in flax's layout and order; a parameter
-    that got no gradient counts as zero."""
-    return [np.asarray(tck._flax_layout(
-        p, t.grad if t.grad is not None else torch.zeros_like(t)),
-        np.float64) for p, t in tck.param_paths(model)]
 
 
 def _flax_vars(model):

@@ -4,15 +4,17 @@ package (CPU).
 * CA instance files (``_b.txt``, ``_C.txt``, ``.lp``), the allres
   oracle CSV and the xiter trajectory CSV: byte for byte the JAX
   package's, and read back as it reads them.
-* ``utils/cmd_args``: the same flags plus ``-device``; ``-mesh > 0``
-  refused with the missing part named, ``-matvec_dtype bfloat16`` taken.
+* ``utils/cmd_args``: the same flags plus ``-device``; ``-mesh 2``
+  taken (refused for drivers that do not shard), ``-matvec_dtype
+  bfloat16`` taken.
 * ``utils/profiling``: phase totals, ``perturb`` as the JAX package
   draws it.
 * ``experiments/run_lp``: generate -> solve -> train -> test on the CPU
   in a temporary directory (CA 20x60, solves capped at 1500 iterations
   through ``LP_CONFIG.max_iters``), its checkpoint read by the JAX
   package; ``scripts/train_ca500_policy.main`` likewise, its instances
-  cut to 20 x 60.
+  cut to 20 x 60; ``-phase train`` and ``-phase test`` with ``-mesh 2
+  -device cpu`` in two gloo ranks.
 """
 
 import filecmp
@@ -107,8 +109,13 @@ def test_cmd_args_refuse_what_is_not_ported():
     assert {k: v for k, v in vars(a).items() if k != "device"} == vars(j)
     assert a.device == "cuda"
     check_ported(a)
-    with pytest.raises(ValueError, match="parallel"):
-        check_ported(base_parser("x").parse_args(["-mesh", "2"]))
+    # data parallelism is ported for run_lp: -mesh 2 passes; the drivers
+    # that do not shard their workload (run_seg, run_attack) refuse it
+    mesh2 = base_parser("x").parse_args(["-mesh", "2"])
+    check_ported(mesh2)
+    assert mesh2.mesh == 2
+    with pytest.raises(ValueError, match="mesh 2"):
+        check_ported(mesh2, data_parallel=False)
     # bfloat16 E in core.lp.step is ported: the flag passes
     bf = base_parser("x").parse_args(["-matvec_dtype", "bfloat16"])
     check_ported(bf)
@@ -172,6 +179,32 @@ def test_run_lp_phases_on_cpu(tmp_path, capped):
     assert np.isfinite(m["obj"]).all() and m["obj"].shape == (2,)
     assert {"obj_gap", "n_fixed", "fix_errors", "infeasible",
             "wall_time_s", "iter_speedup"} <= set(m)
+    assert any(line.startswith("[l2f] obj gap") for line in logs)
+
+
+def test_run_lp_train_and_test_on_two_ranks(tmp_path, capped):
+    """``-mesh 2 -device cpu``: two gloo ranks, spawned by ``main``, run
+    the train and the test phase on their shards (the capped
+    ``LP_CONFIG`` handed to them); rank 0 alone writes the checkpoint and
+    the log, and the test phase reads the checkpoint back."""
+    from lpbox_admm_tpu_torch.experiments import run_lp
+    common = ["-j", "20", "-col", "60", "-n", "4", "-n_eval", "2",
+              "-batch", "2", "-num_epochs", "1", "-device", "cpu",
+              "-data_dir", str(tmp_path / "data"),
+              "-save_dir", str(tmp_path / "model")]
+    logs = []
+    run = lambda phase, *extra: run_lp.main(
+        ["-phase", phase, *extra] + common, log=logs.append)
+    assert len(run("generate")) == 4
+    ts = run("train", "-mesh", "2")
+    assert ts.step == 1
+    ck = tmp_path / "model" / "checkpoint"
+    assert sorted(os.listdir(ck)) == ["best_checkpoint.npz",
+                                      "checkpoint_0.npz"]
+    log_txt = (tmp_path / "model" / "log" / "log.txt").read_text()
+    assert log_txt.count("epoch 0:") == 1 and "dataset 1..2" in log_txt
+    m = run("test", "-mesh", "2")
+    assert m["obj"].shape == (2,) and np.isfinite(m["obj"]).all()
     assert any(line.startswith("[l2f] obj gap") for line in logs)
 
 

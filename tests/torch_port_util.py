@@ -294,6 +294,57 @@ def attack_referee(images, l2f_lambda, segments=150):
     return out
 
 
+def jax_grads(jt, params, stats, x, lab, w, dtype):
+    """``PolicyTrainer._train_step_impl``'s chunk loop, op by op, with the
+    parameters, statistics and rows cast to ``dtype`` (float64 under
+    ``jax.enable_x64``): rows zero-padded to a multiple of
+    ``micro_rows``, each chunk's loss scaled by chunk_rows / R, the
+    statistics chained, the gradients summed.  Returns the loss, the
+    statistics and the gradient leaves (float64 numpy)."""
+    import jax
+    import jax.numpy as jnp
+    from lpbox_admm_tpu.train.imitation import weighted_bce
+    R = x.shape[0]
+    pad = (-R) % jt.micro_rows
+    xp, lp_, wp = (np.concatenate([a, np.zeros((pad,) + a.shape[1:],
+                                               np.float32)]).astype(dtype)
+                   for a in (x, lab, w))
+    with jax.enable_x64(dtype == np.float64):
+        cast = lambda t: jax.tree_util.tree_map(
+            lambda a: jnp.asarray(np.asarray(a, dtype)), t)
+        params, stats = cast(params), cast(stats)
+        loss, acc = 0.0, None
+        for c in range(0, R + pad, jt.micro_rows):
+            xc, lc, wc = (jnp.asarray(a[c:c + jt.micro_rows])
+                          for a in (xp, lp_, wp))
+
+            def chunk_loss(p, s):
+                (logits, _), mut = jt.model.apply(
+                    {"params": p, "batch_stats": s}, xc, train=True,
+                    mutable=["batch_stats"])
+                return weighted_bce(logits[:, 0], lc, wc) \
+                    * (xc.shape[0] / R), mut["batch_stats"]
+
+            (lk, stats), g = jax.value_and_grad(chunk_loss, has_aux=True)(
+                params, stats)
+            assert lk.dtype == dtype
+            loss += float(lk)
+            acc = g if acc is None else jax.tree_util.tree_map(
+                lambda a, b: a + b, acc, g)
+        stats = jax.tree_util.tree_map(np.asarray, stats)
+        return loss, stats, [np.asarray(a, np.float64) for a in
+                             jax.tree_util.tree_leaves(acc)]
+
+
+def port_grads(model):
+    """The port's gradient leaves in flax's layout and order; a parameter
+    that got no gradient counts as zero."""
+    from lpbox_admm_tpu_torch.utils.checkpoint import _flax_layout, param_paths
+    return [np.asarray(_flax_layout(
+        p, t.grad if t.grad is not None else torch.zeros_like(t)),
+        np.float64) for p, t in param_paths(model)]
+
+
 if __name__ == "__main__":
     # prints the referee constants of chip_smoke.py's seg phase, or with
     # the argument "attack" its attack phase's:
@@ -308,3 +359,4 @@ if __name__ == "__main__":
         print(json.dumps(seg_referee(chip_smoke.seg_images(
             chip_smoke.SEG_SEED, chip_smoke.SEG_BATCH,
             *chip_smoke.SEG_GRID))))
+
