@@ -37,7 +37,8 @@ each rank's loss over its own rows) that must cross the step's bound;
 The batched-matvec probe (``lpbox_admm_tpu_torch.scripts.probe_dot``,
 the port of the JAX package's ``scripts/probe_dot.py``): its three
 formulations P1-P3 at (8, 256, 256) through the entry point's own
-functions; the kernels are also checked and timed at (8, 1664, 4096).
+functions; the kernels are also checked and timed at (8, 1664, 4096),
+each beside ``torch.bmm``, with the host's enqueue time per call.
 
 Then the large-rung path: the reference's xl CA instance (800 items x
 4000 bids), 32 instances padded to (m, n) = (1664, 4096), solved by the
@@ -111,8 +112,9 @@ routes are required.
 
 Phases, cheapest first, each under its own deadline and a watchdog that
 turns a hang into a traceback and a non-zero exit: device, build (one
-nvcc process per source, started together; K1's and K3's registers and
-spills from ptxas, K3 at the xl block without spills; K2's encoder and
+nvcc process per source, started together; K1's, K2's, K3's and P1's
+registers and spills from ptxas, K3 at the xl block and every P1
+instance without spills; K2's encoder and
 classifier kernels, each with HMMA instructions in its SASS), K1 (with planted faults that its limits must
 catch, and one CA instance with an entry of 0.5 that must take the
 f32-stream route) and K2 against their plain PyTorch versions on the
@@ -456,10 +458,11 @@ def card_line():
 
 
 def ptxas_report(text):
-    """Registers and spill bytes of K1's, K2's and K3's instances, from
-    the build's ``ptxas -v`` output (empty for a cached build)."""
+    """Registers and spill bytes of K1's, K2's, K3's and P1's instances,
+    from the build's ``ptxas -v`` output (empty for a cached build)."""
     import re
     label = {"f": "f32", "13__nv_bfloat16": "bf16", "a": "int8"}
+    p1_v = {"0": "scalar v", "1": "quad v"}
     out, cur = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function '|Function properties "
@@ -470,11 +473,14 @@ def ptxas_report(text):
             k1 = re.search(r"lp_window_kernelI(f|13__nv_bfloat16|a)Lb([01])E",
                            name)
             k2 = re.search(r"(policy_(?:encoder|classifier)_kernel)", name)
+            p1 = re.search(r"probe_batched_kernelILb([01])E", name)
             cur = (f"K3 sweep_kernel<{label[k3.group(1)]}, RPT={k3.group(2)}>"
                    if k3 else
                    f"K1 lp_window_kernel<{label[k1.group(1)]}, "
                    f"{'resident' if k1.group(2) == '1' else 'stream'}>"
-                   if k1 else f"K2 {k2.group(1)}" if k2 else None)
+                   if k1 else f"K2 {k2.group(1)}" if k2 else
+                   f"P1 probe_batched_kernel<{p1_v[p1.group(1)]}>"
+                   if p1 else None)
             if cur:
                 out.setdefault(cur, {"registers": None, "stack": None,
                                      "spill_stores": None,
@@ -2828,6 +2834,11 @@ def run(workers):
             require(path_k3 is not None and path_k3["spill_stores"] == 0
                     and path_k3["spill_loads"] == 0,
                     f"K3 at the xl block spills no registers: {path_k3}")
+            p1s = {k: r for k, r in ptxas.items() if k.startswith("P1 ")}
+            require(len(p1s) == 2 and all(
+                r["spill_stores"] == 0 and r["spill_loads"] == 0
+                for r in p1s.values()),
+                f"no P1 instance spills registers: {p1s}")
     summary["build_s"] = info["seconds"]
     summary["ptxas"] = ptxas
     summary["k2_sass_hmma"] = hmma
@@ -3182,7 +3193,7 @@ def run(workers):
                               {"K3": xl_launches["K3"],
                                "K4": sym_launches["K4"]}, k3_res, k4_res)
         kernels += probe_timings(probe_ops, probe_dot, probe_launches,
-                                 probe_errs)
+                                 probe_errs, ptxas)
     summary["timing_s"] = ph.seconds
     with Phase("train-split", 60) as ph:
         summary["train_split"] = train_split_fn()
@@ -3441,12 +3452,28 @@ def xl_timings(args, Gp, v, ginv, fused_stream, symm, launches, k3_res,
     ]
 
 
-def probe_timings(ops, probe_dot, launches, errs):
+def host_us(fn, reps):
+    """Microseconds of host time per call of ``fn``: ``time.perf_counter``
+    around ``reps`` calls with no synchronize between them (the enqueue,
+    not the device's work)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def probe_timings(ops, probe_dot, launches, errs, ptxas):
     """P1-P3 and the library yardstick ``torch.bmm(E, v[..., None])`` at
     each shape of ``ops``, two ways: one call at a time after a 1 GiB
     read that leaves L2 cold (the rows' ``ms`` at the probe's shape,
     ``ms_xl`` at PROBE_XL), and back to back (logged); the plain
-    versions back to back at the probe's shape."""
+    versions back to back and the host's enqueue time per call at the
+    probe's shape; P1's registers from ptxas."""
     import torch
     flush = torch.empty(256 * 2**20, dtype=torch.float32, device="cuda")
     reps = {"probe": (50, 200), "xl": (20, 50)}
@@ -3459,6 +3486,8 @@ def probe_timings(ops, probe_dot, launches, errs):
         cold = {k: cuda_ms_cold(f, reps[label][0], flush)
                 for k, f in fns.items()}
         warm = {k: cuda_ms(f, reps[label][1]) for k, f in fns.items()}
+        host = ({k: host_us(f, reps[label][1]) for k, f in fns.items()}
+                if label == "probe" else {})
         # each input read once, the output written once
         nbytes = 4 * (E.numel() + v.numel() + bt * m)
         for i, name in enumerate(probe_dot.NAMES):
@@ -3476,11 +3505,14 @@ def probe_timings(ops, probe_dot, launches, errs):
                 f"back to back; bmm {cold['bmm']:.4f} ms cold, "
                 f"{warm['bmm'] * 1e3:.1f} us back to back; bound "
                 f"{bound * 1e3:.5f} ms ({flops:.3e} flop, {nbytes} B), "
-                f"{bound * 1e3 / cold[name]:.1%} of it")
+                f"{bound * 1e3 / cold[name]:.1%} of it"
+                + (f"; host {host[name]:.1f} us a call, bmm "
+                   f"{host['bmm']:.1f}" if host else ""))
             res.setdefault(name, {})[label] = {
                 "ms": cold[name], "library_ms": cold["bmm"],
                 "bound_ms": bound * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "host_us": host.get(name), "library_host_us": host.get("bmm")}
     E, v = ops["probe"]
     rows = []
     replaces = {"batched_dot": 43, "pairs": 50, "vpu": 61}
@@ -3494,8 +3526,11 @@ def probe_timings(ops, probe_dot, launches, errs):
              "launches": launches[name], "max_abs_err": errs["probe"][name],
              "ms": p["ms"], "plain_ms": plain, "bound_ms": p["bound_ms"],
              "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+             "host_us": p["host_us"], "library_host_us": p["library_host_us"],
              "max_abs_err_xl": errs["xl"][name], "ms_xl": x["ms"],
              "bound_ms_xl": x["bound_ms"], "library_ms_xl": x["library_ms"]})
+    rows[0]["registers"] = {k: r["registers"] for k, r in ptxas.items()
+                            if k.startswith("P1 ")}
     return rows
 
 

@@ -19,9 +19,19 @@
 // P2's bt-fold product 8.39 MFLOP and 0.87 GFLOP, run three times on the
 // TF32 tensor cores (below), 0.05 and 5.3 us at 495 TFLOP/s.
 //
-// P1: one warp per output row, each lane reading 16-byte quads of E's
-// row (a warp reads 512 contiguous bytes), v of the instance in shared
-// memory, a butterfly shuffle sum.
+// P1: a persistent grid (as many 4-warp blocks on each SM as fit) whose
+// warps split the bt*m rows into balanced contiguous ranges, so a warp
+// streams one flat range of E from start to end, in 4 KB chunks, with no
+// block-wide barrier.  Lane 0 of each warp keeps 3 chunks in flight into
+// the warp's own ring in shared memory (cp.async.bulk completing an
+// mbarrier: TMA), the lanes reading 16-byte quads from there.  Bulk
+// copies need 16-byte aligned addresses and sizes, so each warp's range
+// is rounded down to 4 floats at both ends and the < 4 floats past its
+// end are read directly.  v is read per chunk through the read-only
+// path, issued before the chunk is waited for: the quads of each step
+// that lies in one row, and entry by entry at row edges.  So v takes no
+// shared memory and P1 takes any n >= 1 and any bt.  Each row is summed
+// by its warp, in one lane order and one butterfly: no atomics.
 //
 // P2 runs its product on the tensor cores (mma.sync m16n8k8 TF32).  One
 // TF32 pass misses the probe's tolerance (6.0e-5 of max |ref| at
@@ -80,35 +90,257 @@ struct ProbeArgs {
   int bt, m, n;
 };
 
-constexpr int P1_WARPS = 8;
-constexpr int P1_NMAX = 12288;  // v in 48 KB of dynamic shared memory
-// P1_NMAX, P2_BTMAX and the grid.y limit 65535 are copied in the
-// package's scripts/probe_dot.py, which refuses the same shapes before a
-// launch.
+// P2_BTMAX and the grid.y limit 65535 of P3 are copied in the package's
+// scripts/probe_dot.py, which refuses the same shapes before a launch.
 
+// ---- P1 ---------------------------------------------------------------
+constexpr int P1_WARPS = 4;    // warps of a block, each walking its own rows
+constexpr int P1_STEP = 128;   // floats a warp takes at once: a quad a lane
+constexpr int P1_U = 8;        // steps of a chunk: 8 quads a lane in flight
+constexpr int P1_CHUNK = P1_U * P1_STEP;  // 4 KB of E
+constexpr int P1_STAGES = 3;   // ring slots a warp: 12 KB
+constexpr int P1_SMEM = P1_WARPS * P1_STAGES * (P1_CHUNK * 4 + 8);
+
+// One warp's walk over its rows [r, rb) of the flat (bt*m, n) view of E,
+// fed 128-float steps in flat order.  Warp-uniform but for acc.
+struct P1Walk {
+  long long r, rb;  // the row being summed, the end of the warp's rows
+  long long r0;     // flat index of row r's first entry
+  long long bend;   // first row of the next instance
+  const float* vb;  // v of row r's instance
+  float acc;        // this lane's products of row r so far, in flat order
+};
+
+// a / b for 0 <= a, 0 < b, in 32 bits where both fit (every shape the
+// probe times): a 64-bit division is a long serial routine, paid by each
+// warp before its first load.
+__device__ __forceinline__ long long p1_div(long long a, long long b) {
+  return (unsigned long long)(a | b) >> 32 == 0
+             ? (long long)((unsigned)a / (unsigned)b)
+             : a / b;
+}
+
+__device__ __forceinline__ void p1_next_row(P1Walk& w, const ProbeArgs& a) {
+  ++w.r;
+  w.r0 += a.n;
+  if (w.r == w.bend) {
+    w.bend += a.m;
+    w.vb += a.n;
+  }
+}
+
+// Row r is whole: the warp's butterfly sum, written by lane 0.
+__device__ __forceinline__ void p1_end_row(P1Walk& w, const ProbeArgs& a,
+                                          int lane) {
+  const float s = lpbox::warp_sum(w.acc);
+  if (lane == 0) a.y[w.r] = s;
+  w.acc = 0.f;
+  p1_next_row(w, a);
+}
+
+// Any step: the lane's quad x holds E's flat entries g .. g+3, g = gs +
+// 4 lane; entries at or past `hi` are not the warp's.  Every row the step
+// touches takes the lane's entries that fall in it, FMA'd in flat order,
+// and a row that ends in the step is summed.
+__device__ __forceinline__ void p1_step(P1Walk& w, const ProbeArgs& a,
+                                        long long gs, const float4& x,
+                                        long long hi, int lane) {
+  const long long g = gs + 4 * lane;
+  const float e[4] = {x.x, x.y, x.z, x.w};
+  while (w.r < w.rb && w.r0 < hi) {
+    const long long rend = w.r0 + a.n, up = rend < hi ? rend : hi;
+    const float* vp = w.vb + (g - w.r0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (g + i >= w.r0 && g + i < up) w.acc = fmaf(e[i], __ldg(vp + i), w.acc);
+    if (rend > hi) break;  // row r goes on in the next step
+    p1_end_row(w, a, lane);
+  }
+}
+
+// A quad of v from vp: one 16-byte load (VEC: n % 4 == 0 and v aligned,
+// so a quad that starts a step in one row starts at a multiple of 4) or
+// four.
+template <bool VEC>
+__device__ __forceinline__ float4 p1_vquad(const float* vp) {
+  return VEC ? __ldg(reinterpret_cast<const float4*>(vp))
+             : make_float4(__ldg(vp), __ldg(vp + 1), __ldg(vp + 2),
+                           __ldg(vp + 3));
+}
+
+// The steps of the chunk at c0 that lie whole in one row, as a bit mask,
+// and for each of them the lane's quad of v, loaded before the chunk's
+// E is used: the walk of rows needs no data of E.
+template <bool VEC>
+__device__ __forceinline__ unsigned p1_plan(P1Walk w, const ProbeArgs& a,
+                                            long long c0, long long A1,
+                                            int lane, float4 (&q)[P1_U]) {
+  unsigned one = 0;
+#pragma unroll
+  for (int u = 0; u < P1_U; ++u) {
+    const long long gs = c0 + u * P1_STEP;
+    q[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gs + P1_STEP > A1) continue;
+    while (w.r < w.rb && w.r0 + a.n <= gs) p1_next_row(w, a);
+    if (w.r < w.rb && w.r0 <= gs && w.r0 + a.n >= gs + P1_STEP) {
+      one |= 1u << u;
+      q[u] = p1_vquad<VEC>(w.vb + (gs + 4 * lane - w.r0));
+    }
+  }
+  return one;
+}
+
+__device__ __forceinline__ unsigned p1_smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Lane 0: chunk c of the warp's copy range [A0, A1) into its ring slot,
+// completing the slot's mbarrier.  The fence orders the warp's earlier
+// reads of the slot (generic proxy) before the copy's writes (async).
+__device__ __forceinline__ void p1_issue(const float* E, long long A0,
+                                         long long A1, long long c,
+                                         float* ring,
+                                         unsigned long long* bar) {
+  const int s = (int)(c % P1_STAGES);
+  const long long f0 = A0 + c * P1_CHUNK;
+  const long long nf = A1 - f0 < P1_CHUNK ? A1 - f0 : P1_CHUNK;
+  const unsigned bytes = (unsigned)(4 * nf);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(p1_smem_u32(bar + s)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(p1_smem_u32(ring + s * P1_CHUNK)),
+      "l"(E + f0), "r"(bytes), "r"(p1_smem_u32(bar + s))
+      : "memory");
+}
+
+// Until phase `parity` of `bar` completes; a wait that never ends (a
+// fault) traps instead of hanging the card.
+__device__ __forceinline__ void p1_wait(unsigned long long* bar,
+                                        unsigned parity) {
+  const unsigned addr = p1_smem_u32(bar);
+  for (unsigned k = 0;; ++k) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
+        "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    if (done) return;
+    if (k == (1u << 22)) __trap();
+  }
+}
+
+// Persistent: the grid's warps split the bt*m rows into balanced
+// contiguous ranges, so a warp's rows are one flat range [F0, F1) of E,
+// walked in 4 KB chunks: [A0, A1), both ends rounded down to 4 floats
+// (16 bytes); the < 4 floats past A1 are read at the end.  Lane 0 copies
+// the chunks into the warp's ring of P1_STAGES slots in shared memory
+// (cp.async.bulk with an mbarrier), P1_STAGES ahead of the lanes, which
+// read their 8 quads of a chunk from there.  A chunk that lies whole in
+// one row loads its 8 quads of v before it is waited for; in any other,
+// each step that lies whole in one row (every step at n % 128 == 0) has
+// its quad of v loaded ahead as well (p1_plan), and the rest go entry by
+// entry through p1_step.  The whole-chunk path is the walk's fast case:
+// without it the xl block took 14% longer (PERF.md).  A row's sum (one
+// lane order, one butterfly) is fixed by the shape and the grid.
+template <bool VEC>
 __global__ void __launch_bounds__(P1_WARPS * 32)
     probe_batched_kernel(const ProbeArgs a) {
-  extern __shared__ __align__(16) float vs[];  // (n,)
-  const int b = blockIdx.y, n = a.n;
-  const float* v = a.v + (size_t)b * n;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) vs[j] = v[j];
-  __syncthreads();
+  extern __shared__ __align__(128) unsigned char p1_smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row = blockIdx.x * P1_WARPS + warp;
-  if (row >= a.m) return;  // no barrier follows
-  const float* e = a.E + ((size_t)b * a.m + row) * n;
-  float s = 0.f;
-  for (int j = 4 * lane; j < n; j += 128) {
-    float q[4];
-    lpbox::load4(e + j, q);
-    const float4 w = *reinterpret_cast<const float4*>(vs + j);
-    s = fmaf(q[0], w.x, s);
-    s = fmaf(q[1], w.y, s);
-    s = fmaf(q[2], w.z, s);
-    s = fmaf(q[3], w.w, s);
+  const long long R = (long long)a.bt * a.m;
+  const long long P = (long long)gridDim.x * P1_WARPS;
+  const long long p = (long long)blockIdx.x * P1_WARPS + warp;
+  P1Walk w;
+  w.r = p1_div(R * p, P);
+  w.rb = p1_div(R * (p + 1), P);
+  if (w.r == w.rb) return;  // no barrier is shared between warps
+  const long long F0 = w.r * a.n, F1 = w.rb * a.n;
+  const long long A0 = F0 & ~3LL, A1 = F1 & ~3LL;
+  const long long b = p1_div(w.r, a.m);
+  w.r0 = F0;
+  w.bend = (b + 1) * a.m;
+  w.vb = a.v + b * a.n;
+  w.acc = 0.f;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const long long nc = (A1 - A0 + P1_CHUNK - 1) / P1_CHUNK;
+  float* ring = reinterpret_cast<float*>(p1_smem) +
+                (size_t)warp * P1_STAGES * P1_CHUNK;
+  unsigned long long* bar =
+      reinterpret_cast<unsigned long long*>(
+          p1_smem + (size_t)P1_WARPS * P1_STAGES * P1_CHUNK * 4) +
+      warp * P1_STAGES;
+  if (lane == 0) {
+    for (int s = 0; s < P1_STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          p1_smem_u32(bar + s)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (long long c = 0; c < P1_STAGES && c < nc; ++c)
+      p1_issue(a.E, A0, A1, c, ring, bar);
   }
-  s = lpbox::warp_sum(s);
-  if (lane == 0) a.y[(size_t)b * a.m + row] = s;
+  __syncwarp();
+  for (long long c = 0; c < nc; ++c) {
+    const long long c0 = A0 + c * P1_CHUNK;
+    // a chunk that lies whole in one row (every chunk at n % 1024 == 0)
+    // needs no walk of rows: its 8 quads of v and 32 FMAs straight
+    const bool whole = c0 + P1_CHUNK <= A1 && w.r0 <= c0 &&
+                       w.r0 + a.n >= c0 + P1_CHUNK;
+    float4 x[P1_U], q[P1_U];
+    unsigned one = (1u << P1_U) - 1;
+    if (whole) {
+      const float* vp = w.vb + (c0 + 4 * lane - w.r0);
+#pragma unroll
+      for (int u = 0; u < P1_U; ++u) q[u] = p1_vquad<VEC>(vp + P1_STEP * u);
+    } else {
+      one = p1_plan<VEC>(w, a, c0, A1, lane, q);
+    }
+    const int s = (int)(c % P1_STAGES);
+    p1_wait(bar + s, (unsigned)((c / P1_STAGES) & 1));
+    const float4* buf =
+        reinterpret_cast<const float4*>(ring + s * P1_CHUNK) + lane;
+#pragma unroll
+    for (int u = 0; u < P1_U; ++u)
+      x[u] = c0 + u * P1_STEP + 4 * lane < A1 ? buf[32 * u] : zero;
+    if (whole) {
+#pragma unroll
+      for (int u = 0; u < P1_U; ++u) {
+        w.acc = fmaf(x[u].x, q[u].x, w.acc);
+        w.acc = fmaf(x[u].y, q[u].y, w.acc);
+        w.acc = fmaf(x[u].z, q[u].z, w.acc);
+        w.acc = fmaf(x[u].w, q[u].w, w.acc);
+      }
+      if (w.r0 + a.n == c0 + P1_CHUNK) p1_end_row(w, a, lane);
+    } else {
+#pragma unroll
+      for (int u = 0; u < P1_U; ++u) {
+        const long long gs = c0 + u * P1_STEP;
+        if (gs >= A1) break;
+        if (one >> u & 1) {  // step u lies whole in row r
+          w.acc = fmaf(x[u].x, q[u].x, w.acc);
+          w.acc = fmaf(x[u].y, q[u].y, w.acc);
+          w.acc = fmaf(x[u].z, q[u].z, w.acc);
+          w.acc = fmaf(x[u].w, q[u].w, w.acc);
+          if (w.r0 + a.n == gs + P1_STEP) p1_end_row(w, a, lane);
+        } else {
+          p1_step(w, a, gs, x[u], gs + P1_STEP < A1 ? gs + P1_STEP : A1,
+                  lane);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0 && c + P1_STAGES < nc)
+      p1_issue(a.E, A0, A1, c + P1_STAGES, ring, bar);
+  }
+  if (A1 < F1) {  // the < 4 floats past the last 16-byte boundary
+    float4 x = zero;
+    if (lane == 0) {
+      x.x = __ldcs(a.E + A1);
+      if (A1 + 1 < F1) x.y = __ldcs(a.E + A1 + 1);
+      if (A1 + 2 < F1) x.z = __ldcs(a.E + A1 + 2);
+    }
+    p1_step(w, a, A1, x, F1, lane);
+  }
 }
 
 // ---- P2 ---------------------------------------------------------------
@@ -299,6 +531,41 @@ bool vec_ok(const ProbeArgs& a) {
          reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
 }
 
+// P1's persistent grid: as many blocks on each SM as fit, asked of the
+// device once per instance and device (the ring's shared memory, over
+// 48 KB, is allowed first).
+template <bool VEC>
+cudaError_t p1_launch(const ProbeArgs& a, cudaStream_t s) {
+  constexpr int kMaxDev = 64;
+  static int grid[kMaxDev];
+  const auto kernel = probe_batched_kernel<VEC>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDev) return cudaErrorInvalidValue;
+  if (grid[dev] == 0) {
+    int sms = 0, fit = 0;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P1_SMEM);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel,
+                                                        P1_WARPS * 32,
+                                                        P1_SMEM);
+    if (err != cudaSuccess) return err;
+    if (fit < 1) return cudaErrorInvalidConfiguration;
+    grid[dev] = sms * fit;
+  }
+  kernel<<<grid[dev], P1_WARPS * 32, P1_SMEM, s>>>(a);
+  return cudaGetLastError();
+}
+
+// P1's quads of v: n % 4 == 0 and v 16-byte aligned (E must be).
+bool p1_vec_ok(const ProbeArgs& a) {
+  return a.n % 4 == 0 && reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+}
+
 template <bool VEC>
 void pairs_launch(const ProbeArgs& a, unsigned tiles, cudaStream_t s) {
   const int nt = (a.bt + 7) / 8;
@@ -318,12 +585,10 @@ LPBOX_API int lpbox_probe_args_size() { return (int)sizeof(ProbeArgs); }
 
 LPBOX_API int lpbox_probe_batched(const void* args, void* stream) {
   const ProbeArgs& a = *static_cast<const ProbeArgs*>(args);
-  if (!valid(a) || a.n % 4 || a.n > P1_NMAX || a.bt > 65535)
+  if (!valid(a) || reinterpret_cast<uintptr_t>(a.E) % 16)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((a.m + P1_WARPS - 1) / P1_WARPS, a.bt);
-  probe_batched_kernel<<<grid, P1_WARPS * 32, a.n * sizeof(float),
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(p1_vec_ok(a) ? p1_launch<true>(a, s) : p1_launch<false>(a, s));
 }
 
 LPBOX_API int lpbox_probe_pairs(const void* args, void* stream) {

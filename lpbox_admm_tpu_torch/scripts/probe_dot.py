@@ -6,7 +6,9 @@ Port of the JAX package's ``scripts/probe_dot.py``, which probed which
 batched-matvec formulations lower in Mosaic (TPU Pallas) and which is
 fastest per call:
 
-* ``batched_dot`` (P1): one batched dot;
+* ``batched_dot`` (P1): one batched dot, on a persistent grid whose warps
+  each stream a contiguous range of E's rows through a TMA ring in
+  shared memory (any shape: no limit on n or bt);
 * ``pairs`` (P2): one 2-D product of all bt*m rows of E against all bt
   vectors, (bt*m, n) @ (n, bt) -> (bt, m, bt), then the diagonal b = b'
   selected and summed: bt times P1's flops, as the TPU probe measured;
@@ -43,10 +45,9 @@ from ..core.problem import as_device
 TOL = 1e-5
 #: limits of the kernels, each a copy of the constant of csrc/probe_dot.cu
 #: named beside it, whose launchers refuse the same shapes; here they
-#: refuse them before any launch, and on the CPU too
-P1_NMAX = 12288      # P1_NMAX: P1 keeps v in 48 KB of shared memory
+#: refuse them before any launch, and on the CPU too.  P1 takes any shape.
 P2_BTMAX = 64        # P2_BTMAX: P2 keeps 8 n-tiles of 8 vectors
-GRID_Y_MAX = 65535   # P1 and P3 put the instance on grid.y
+GRID_Y_MAX = 65535   # P3 puts the instance on grid.y
 #: the probe's shape, as the JAX script has it, and its timed calls
 SHAPE = (8, 256, 256)
 REPS = 200
@@ -97,13 +98,10 @@ def check_shapes(name: str, E: torch.Tensor, v: torch.Tensor) -> None:
     bt, m, n = E.shape
     if min(bt, m, n) < 1:
         raise ValueError(f"{name}: empty shape {(bt, m, n)}")
-    if name == "batched_dot" and (n % 4 or n > P1_NMAX):
-        raise ValueError(f"batched_dot: n = {n} must be a multiple of 4 "
-                         f"and at most {P1_NMAX}")
     if name == "pairs" and bt > P2_BTMAX:
         raise ValueError(f"pairs: bt = {bt} is over {P2_BTMAX}")
-    if name != "pairs" and bt > GRID_Y_MAX:
-        raise ValueError(f"{name}: bt = {bt} is over {GRID_Y_MAX}")
+    if name == "vpu" and bt > GRID_Y_MAX:
+        raise ValueError(f"vpu: bt = {bt} is over {GRID_Y_MAX}")
 
 
 def launch(name: str, E: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

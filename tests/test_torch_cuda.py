@@ -316,19 +316,29 @@ def test_k4_matches_plain(cuda, m):
     assert torch.equal(y, symm.symm_matvec_cuda(Gp, v))
 
 
-@pytest.mark.parametrize("shape", [
+PROBE_SHAPES = [
     (8, 256, 256),  # the probe's own
     (1, 5, 8),      # fewer rows than one 16-row tile of P2
     (3, 10, 260),   # P2's 16-row tiles span instances
     (64, 16, 64),   # P2's bt limit: 8 n-tiles
-    (8, 256, 262),  # n % 4: 4-byte copies in P2, scalar loads in P3
-], ids=lambda s: "x".join(map(str, s)))
+    (8, 256, 262),  # n % 4: 4-byte copies in P2, scalar loads in P1, P3
+    (2, 8, 12292),  # past the 12288 floats of v the first P1 held
+    (8, 1664, 4096),  # the xl block
+    (3, 5, 1),      # n = 1: no step of P1 lies in one row
+    (70000, 2, 8),  # bt past grid.y: P1 only (P2 and P3 refuse it)
+]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("name", probe_dot.NAMES)
 def test_probe_matches_plain(cuda, name, shape):
     E_np, v_np = probe_dot.make_inputs(*shape)
     E, v = torch.from_numpy(E_np).to(cuda), torch.from_numpy(v_np).to(cuda)
-    if name == "batched_dot" and shape[2] % 4:
-        with pytest.raises(ValueError, match="multiple of 4"):
+    bt = shape[0]
+    if (name == "pairs" and bt > probe_dot.P2_BTMAX
+            or name == "vpu" and bt > probe_dot.GRID_Y_MAX):
+        with pytest.raises(ValueError, match="over"):
             probe_dot.matvec(name, E, v)
         return
     before = probe_dot.LAUNCHES[name]

@@ -28,7 +28,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from lpbox_admm_tpu_torch.kernels import build
-from lpbox_admm_tpu_torch.scripts import probe_dot
+from lpbox_admm_tpu_torch.scripts import probe_ab, probe_dot
 
 from torch_port_util import tf32_rna
 
@@ -78,9 +78,60 @@ def test_probe_entry_point_on_cpu(capsys):
     assert len(lines) == 1 + len(probe_dot.NAMES)
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 30), (2, 8, 12292), (3, 5, 1),
+                                   (70000, 2, 8)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_batched_dot_takes_any_n(shape):
+    """P1 takes every shape the JAX ``k_batched`` takes: n % 4 != 0, n
+    past the 12 288 floats of v its first design kept in shared memory,
+    n = 1, bt past the 65 535 blocks of a grid's y dimension.  The port
+    against the JAX kernel in interpret mode."""
+    bt, m, n = shape
+    E, v = probe_dot.make_inputs(bt, m, n, seed=n)
+    probe_dot.check_shapes("batched_dot", torch.from_numpy(E),
+                           torch.from_numpy(v))
+    want = np.einsum("bmn,bn->bm", E.astype(np.float64), v.astype(np.float64))
+    tol = 1e-5 * np.abs(want).max()
+    yj = np.asarray(pl.pallas_call(
+        jax_kernel("k_batched", bt, m, n),
+        out_shape=jax.ShapeDtypeStruct((bt, m), jnp.float32),
+        interpret=True)(jnp.asarray(E), jnp.asarray(v)))
+    yt = probe_dot.matvec("batched_dot", torch.from_numpy(E),
+                          torch.from_numpy(v)).numpy()
+    assert np.abs(yt - want).max() <= tol
+    assert np.abs(yt - yj).max() <= tol
+
+
+def test_batched_dot_takes_any_bt():
+    """P1 has no limit on bt: it takes 70 000 instances, which P3 (the
+    instance on grid.y) and P2 (8 n-tiles of 8 vectors) refuse; on a
+    device other than CUDA it is refused as a launch."""
+    E = torch.empty(70000, 2, 8, device="meta")
+    v = torch.empty(70000, 8, device="meta")
+    probe_dot.check_shapes("batched_dot", E, v)
+    with pytest.raises(ValueError, match="over 65535"):
+        probe_dot.check_shapes("vpu", E, v)
+    with pytest.raises(ValueError, match="over 64"):
+        probe_dot.check_shapes("pairs", E, v)
+    with pytest.raises(ValueError, match="device"):
+        probe_dot.launch("batched_dot", E, v)
+
+
+def test_probe_ab_reads_p1_registers():
+    """The A/B script keeps ptxas's register count of each P1 instance
+    and nothing of the other kernels; without a card it does nothing."""
+    text = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120probe_batched_kernelILb1EEEvNS_9ProbeArgsE' for 'sm_90a'
+ptxas info    : Used 115 registers, used 0 barriers, 49248 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116probe_vpu_kernelILb1EEEvNS_9ProbeArgsE' for 'sm_90a'
+ptxas info    : Used 40 registers
+"""
+    assert probe_ab.ptxas_registers(text) == {
+        "_ZN12_GLOBAL__N_120probe_batched_kernelILb1EEEvNS_9ProbeArgsE": 115}
+    if not torch.cuda.is_available():
+        assert probe_ab.main([]) == 1
+
+
 @pytest.mark.parametrize("name,shape,match", [
-    ("batched_dot", (2, 8, 30), "multiple of 4"),
-    ("batched_dot", (2, 8, 12292), "at most 12288"),
     ("pairs", (65, 8, 32), "over 64"),
     ("vpu", (2, 8, 32, 1), "expected E"),
 ])
