@@ -1,0 +1,20 @@
+"""The learned early-fixing solve: ``train.l2f.l2f_solve_compact`` (the
+policy phase on K2 and K1 or ``core.lp`` windows, compaction, the K1
+tail, selection and repair)."""
+
+
+def build(port, setting):
+    l2f = port["l2f"]
+    model, cfg, pcfg = setting["model"], setting["cfg"], setting["pcfg"]
+    args = dict(setting["args"])
+
+    def solve(prob, traced):
+        # the phase timings synchronise the device, so only a traced run
+        # asks for them
+        tm = {} if traced else None
+        _, out = l2f.l2f_solve_compact(prob, model, cfg, pcfg, timings=tm,
+                                       **args)
+        return {"sol": out["solution"], "obj": out["obj"],
+                "n_fixed": out["n_fixed"], "timings": tm,
+                "iterations": out["iterations"]}
+    return solve
