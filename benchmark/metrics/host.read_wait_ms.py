@@ -1,0 +1,10 @@
+"""Mean milliseconds the host spends in its counted device-to-host
+reads per batch: the ``host_read_wait_s`` of the ``timings`` that
+``train.l2f.l2f_solve_compact`` fills in traced runs.  Nothing where the
+program has no such key."""
+
+
+def read(run):
+    ts = [b["timings"]["host_read_wait_s"] for b in run["batches"]
+          if "host_read_wait_s" in (b.get("timings") or {})]
+    return 1e3 * sum(ts) / len(ts) if ts else None

@@ -1,0 +1,12 @@
+"""Mean milliseconds of the Woodbury inverses per batch: the
+``factor_s`` of the ``timings`` that ``train.l2f.l2f_solve_compact``
+fills in traced runs (the program's span ``woodbury.factor`` around each
+Cholesky inverse of ``ops/woodbury.py``: the first factor, one after
+each fix, the compacted and the n-side factor).  Nothing where the
+program has no such key."""
+
+
+def read(run):
+    ts = [b["timings"]["factor_s"] for b in run["batches"]
+          if "factor_s" in (b.get("timings") or {})]
+    return 1e3 * sum(ts) / len(ts) if ts else None

@@ -51,6 +51,7 @@ from ..ops.projections import (project_box, project_nonneg,
                                project_shifted_lp_ball)
 from ..ops.schedule import gamma_at, rho_at
 from ..ops.stats import dual_residuals, rel_std_obj
+from ..utils import profiling
 from .problem import LpProblem
 
 _BEST_INIT = 1e30     # "no feasible incumbent yet" sentinel
@@ -441,15 +442,17 @@ def solve_window(state: LpState, prob: LpProblem, cfg: SolverConfig,
                  rule_fixing: bool = False
                  ) -> Tuple[LpState, Optional[torch.Tensor]]:
     """Run ``window`` iterations, optionally capturing the (B, n, window)
-    x trajectory (reference x_iters, :1472-1475)."""
-    prob = _mv_problem(prob, cfg)
-    traj = []
-    for _ in range(window):
-        state = step(state, prob, cfg, skip_cvg_at=skip_cvg_at,
-                     rule_fixing=rule_fixing)
-        if record:
-            traj.append(state.x)
-    return state, (torch.stack(traj, dim=-1) if record else None)
+    x trajectory (reference x_iters, :1472-1475); the tracer's span
+    ``lp.window``."""
+    with profiling.span("lp.window"):
+        prob = _mv_problem(prob, cfg)
+        traj = []
+        for _ in range(window):
+            state = step(state, prob, cfg, skip_cvg_at=skip_cvg_at,
+                         rule_fixing=rule_fixing)
+            if record:
+                traj.append(state.x)
+        return state, (torch.stack(traj, dim=-1) if record else None)
 
 
 def solve(prob: LpProblem, cfg: SolverConfig,
@@ -796,35 +799,37 @@ def select_solution(prob: LpProblem, sol_last: torch.Tensor,
     objective or the final rounding is infeasible.  Optionally polished
     by eviction (``drop_rounds``), greedy refill (``repair_rounds``) and
     1-for-1 swaps (``swap_rounds``), on dense E only.  Returns
-    (sol, obj, infeasible_rows).
+    (sol, obj, infeasible_rows).  The tracer's span ``lp.select``.
     """
-    sols = torch.stack([sol_last, sol_best], dim=1)          # (B, 2, n)
-    ex = _mv_many(prob.E, sols)                               # (B, 2, m)
-    viol = (ex > prob.f[:, None]) & prob.row_mask[:, None]
-    infeas = viol.sum(-1)                                     # (B, 2)
-    obj = (prob.b[:, None, :] * sols).sum(-1)                 # (B, 2)
-    use_best = (infeas[:, 1] == 0) \
-        & ((obj[:, 1] <= obj[:, 0]) | (infeas[:, 0] > 0))
-    k = use_best.long()
-    sol = torch.gather(sols, 1, k[:, None, None].expand(
-        -1, 1, sols.shape[-1]))[:, 0]
-    obj_sel = torch.gather(obj, 1, k[:, None])[:, 0]
-    inf_sel = torch.gather(infeas, 1, k[:, None])[:, 0]
-    if repair_rounds or swap_rounds or drop_rounds:
-        if sparse_ops.is_sparse(prob.E):
-            raise ValueError(
-                "greedy/swap repair needs a dense E (per-column slack "
-                "comparisons); call select_solution without repair on "
-                "sparse problems")
-        from ..ops.repair import drop_to_feasible, greedy_repair, swap_repair
-        rprob = prob.replace(E=prob.E.float())
-        if drop_rounds:
-            sol = drop_to_feasible(rprob, sol, rounds=drop_rounds)
-        if repair_rounds:
-            sol = greedy_repair(rprob, sol, rounds=repair_rounds)
-        if swap_rounds:
-            sol = swap_repair(rprob, sol, rounds=swap_rounds)
-        obj_sel = (prob.b * sol).sum(-1)
-        exr = _mv(rprob.E, sol)
-        inf_sel = ((exr > prob.f) & prob.row_mask).sum(-1)
-    return sol, obj_sel, inf_sel
+    with profiling.span("lp.select"):
+        sols = torch.stack([sol_last, sol_best], dim=1)      # (B, 2, n)
+        ex = _mv_many(prob.E, sols)                           # (B, 2, m)
+        viol = (ex > prob.f[:, None]) & prob.row_mask[:, None]
+        infeas = viol.sum(-1)                                 # (B, 2)
+        obj = (prob.b[:, None, :] * sols).sum(-1)             # (B, 2)
+        use_best = (infeas[:, 1] == 0) \
+            & ((obj[:, 1] <= obj[:, 0]) | (infeas[:, 0] > 0))
+        k = use_best.long()
+        sol = torch.gather(sols, 1, k[:, None, None].expand(
+            -1, 1, sols.shape[-1]))[:, 0]
+        obj_sel = torch.gather(obj, 1, k[:, None])[:, 0]
+        inf_sel = torch.gather(infeas, 1, k[:, None])[:, 0]
+        if repair_rounds or swap_rounds or drop_rounds:
+            if sparse_ops.is_sparse(prob.E):
+                raise ValueError(
+                    "greedy/swap repair needs a dense E (per-column slack "
+                    "comparisons); call select_solution without repair on "
+                    "sparse problems")
+            from ..ops.repair import (drop_to_feasible, greedy_repair,
+                                      swap_repair)
+            rprob = prob.replace(E=prob.E.float())
+            if drop_rounds:
+                sol = drop_to_feasible(rprob, sol, rounds=drop_rounds)
+            if repair_rounds:
+                sol = greedy_repair(rprob, sol, rounds=repair_rounds)
+            if swap_rounds:
+                sol = swap_repair(rprob, sol, rounds=swap_rounds)
+            obj_sel = (prob.b * sol).sum(-1)
+            exr = _mv(rprob.E, sol)
+            inf_sel = ((exr > prob.f) & prob.row_mask).sum(-1)
+        return sol, obj_sel, inf_sel

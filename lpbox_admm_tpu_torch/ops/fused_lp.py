@@ -44,6 +44,7 @@ import torch
 from ..config import SolverConfig
 from ..core import lp as lp_core
 from ..core.problem import LpProblem
+from ..utils import profiling
 from .fused_stream import _SMEM_MAX, stream_operand
 
 _EPS = 2.2204e-16
@@ -129,9 +130,11 @@ def resident_fits(m: int, n: int) -> bool:
 
 def one_byte_exact(E: torch.Tensor) -> Optional[torch.Tensor]:
     """E as int8 where every entry is an integer in [-127, 127] (then the
-    copy is exact), else None.  One pass over E."""
+    copy is exact), else None.  One pass over E and one host read
+    (``fused_lp.one_byte_exact``)."""
     copy = E.to(torch.int8)
-    if not bool(((copy.to(E.dtype) == E) & (copy != -128)).all()):
+    if not profiling.read("fused_lp.one_byte_exact", bool,
+                          ((copy.to(E.dtype) == E) & (copy != -128)).all()):
         return None
     return copy.contiguous()
 
@@ -471,13 +474,15 @@ def solve_fused_from(state: lp_core.LpState, prob: LpProblem,
                      E_op: Optional[torch.Tensor] = None
                      ) -> lp_core.LpState:
     """Continue a solve with fused windows until every instance is done
-    or ``max_iters`` is reached (one host check per window).  E's kernel
-    operand is ``E_op`` or made here, once for all the windows."""
+    or ``max_iters`` is reached (one host check per window, the read
+    ``fused_lp.done``).  E's kernel operand is ``E_op`` or made here,
+    once for all the windows."""
     if max_iters is None:
         max_iters = cfg.max_iters
     if E_op is None:
         E_op = window_operand(prob.E, cfg)
-    while state.it < max_iters and not bool(state.done.all()):
+    while state.it < max_iters and \
+            not profiling.read("fused_lp.done", bool, state.done.all()):
         state = lp_window_fused(state, prob, cfg, window,
                                 skip_cvg_at=skip_cvg_at, nfactor=nfactor,
                                 E_op=E_op)

@@ -11,7 +11,12 @@ columns, ``c = rho1 + rho2``.  Under the LP schedule ``c / rho4 = 2``
   the right side once compaction leaves n <= m.
 
 Cholesky through ``torch.linalg`` in float32, as the JAX package does
-it in f32 at highest precision.
+it in f32 at highest precision.  Each inverse is the tracer's span
+``woodbury.factor``.  Both library calls wait for the device, counted as
+host reads: ``torch.linalg.cholesky`` reads its error flag back
+(``woodbury.cholesky``), and on the card the batched
+``torch.cholesky_solve`` (MAGMA's) synchronises its stream, besides a
+``cudaMalloc`` and a ``cudaFree`` of its own (``woodbury.cholesky_solve``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils import profiling
 
 
 class WoodburyFactor(NamedTuple):
@@ -33,10 +40,12 @@ class NsideFactor(NamedTuple):
 
 
 def _spd_inverse(A: torch.Tensor) -> torch.Tensor:
-    chol = torch.linalg.cholesky(A)
-    eye = torch.eye(A.shape[-1], dtype=A.dtype,
-                    device=A.device).expand(A.shape)
-    return torch.cholesky_solve(eye, chol)
+    with profiling.span("woodbury.factor"):
+        chol = profiling.read("woodbury.cholesky", torch.linalg.cholesky, A)
+        eye = torch.eye(A.shape[-1], dtype=A.dtype,
+                        device=A.device).expand(A.shape)
+        return profiling.read("woodbury.cholesky_solve",
+                              torch.cholesky_solve, eye, chol)
 
 
 def factorize_from_gram(G: torch.Tensor, ratio: float) -> WoodburyFactor:

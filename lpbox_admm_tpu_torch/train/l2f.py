@@ -54,7 +54,6 @@ a launch error and retries.
 
 from __future__ import annotations
 
-import time
 import warnings
 from typing import Optional
 
@@ -69,6 +68,14 @@ from ..models.fused_policy import pack_policy_weights, policy_operand, \
 from ..ops import woodbury
 from ..ops.fused_lp import e_route, fits, lp_window_fused, \
     solve_fused_from, window_operand
+from ..utils import profiling
+
+#: ``l2f_solve_compact``'s ``timings`` keys of the tracer's spans
+#: (``utils.profiling``): seconds per batch, each span summed over the
+#: solve
+SPAN_KEYS = {"l2f.policy": "policy_s", "l2f.tail": "tail_s",
+             "l2f.compact": "compact_s", "lp.window": "lp_window_s",
+             "woodbury.factor": "factor_s", "lp.select": "select_s"}
 
 
 def traj_to_tokens(rows: torch.Tensor, pcfg: PolicyConfig) -> torch.Tensor:
@@ -193,8 +200,10 @@ def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
     (``policy_op``: ``policy_operand(packed)``, made once per solve;
     ``veto``: the second policy's packed weights and operand).
     Returns the state, the largest free-column / supported-row counts
-    over the batch (host integers) and, on the K1 route, E's route into
-    K1 (else None)."""
+    over the batch (host integers, the reads ``l2f.bucket_n`` and
+    ``l2f.bucket_m``) and, on the K1 route, E's route into K1 (else
+    None).  Each window follows a host check of ``done``
+    (``l2f.policy_done``)."""
     margins = fix_margins(prob.b, prob.var_mask, pcfg)
     E_op = window_operand(prob.E, cfg) if route == "k1" else None
     streak1 = torch.zeros(state.x.shape, dtype=torch.int32,
@@ -202,15 +211,17 @@ def _policy_phase(state, prob, packed, cfg, pcfg, ws, policy_windows,
     streak0 = torch.zeros_like(streak1)
     w = 0
     while (w < policy_windows and state.it < max_iter
-           and not bool(state.done.all())):
+           and not profiling.read("l2f.policy_done", bool,
+                                  state.done.all())):
         state, _, streak1, streak0 = _policy_window(
             state, prob, packed, cfg, pcfg, ws, route, margins, streak1,
             streak0, E_op, policy_op, veto)
         w += 1
     support = ((prob.E.abs() > 0) & state.free[:, None, :]).any(-1) \
         & prob.row_mask
-    return (state, int(state.free.sum(-1).max()),
-            int(support.sum(-1).max()),
+    return (state,
+            profiling.read("l2f.bucket_n", int, state.free.sum(-1).max()),
+            profiling.read("l2f.bucket_m", int, support.sum(-1).max()),
             None if E_op is None else e_route(E_op))
 
 
@@ -242,40 +253,44 @@ def _tail_phase(state, orig_prob, cfg, n_new, m_new, rho_boost, max_iter,
     """Phase 2: compaction, rho fast-forward, residual solve to
     convergence (K1, n-side factor when the bucket has n <= m, or
     ``core.lp`` windows of ``ws`` where K1 cannot hold the bucket),
-    scatter + selection.  Returns the results, the route and, on the K1
+    scatter + selection.  Compaction up to the residual solve (the rho
+    fast-forward, K1's operand and the n-side factor too) is the span
+    ``l2f.compact``.  Returns the results, the route and, on the K1
     route, E's route into K1 (else None)."""
     prob = orig_prob
     fixed_full, free_full = state.fixed_val, state.free
     B, n_full = state.x.shape
-    idx_map = torch.arange(n_full, device=state.x.device)[None].expand(
-        B, n_full)
-    if n_new < n_full or m_new < prob.m:
-        state, prob, idx_map = lp.compact(state, prob, cfg, n_new,
-                                          m_new=m_new)
-    elif cfg_changed and not rho_boost:
-        state = lp.refresh_et_next(state, prob, cfg)
-    if rho_boost:
-        # optional acceleration: the residual binarizes once rho is
-        # large, so fast-forward the schedule (the carried E^T w product
-        # depends on rho and is refreshed)
-        state = lp.refresh_et_next(state.replace(it=state.it + rho_boost),
-                                   prob, cfg)
-    route = _route(prob.m, prob.n, cfg)
-    k1_route = None
+    with profiling.span("l2f.compact"):
+        idx_map = torch.arange(n_full, device=state.x.device)[None].expand(
+            B, n_full)
+        if n_new < n_full or m_new < prob.m:
+            state, prob, idx_map = lp.compact(state, prob, cfg, n_new,
+                                              m_new=m_new)
+        elif cfg_changed and not rho_boost:
+            state = lp.refresh_et_next(state, prob, cfg)
+        if rho_boost:
+            # optional acceleration: the residual binarizes once rho is
+            # large, so fast-forward the schedule (the carried E^T w
+            # product depends on rho and is refreshed)
+            state = lp.refresh_et_next(
+                state.replace(it=state.it + rho_boost), prob, cfg)
+        route = _route(prob.m, prob.n, cfg)
+        k1_route = nfactor = None
+        if route == "k1":
+            E_op = window_operand(prob.E, cfg)
+            k1_route = e_route(E_op)
+            if prob.n <= prob.m:
+                nf = woodbury.factorize_nside(prob.E, state.free,
+                                             lp._wb_ratio(cfg))
+                nfactor = (nf.hinv, nf.ete)
     if route == "k1":
-        E_op = window_operand(prob.E, cfg)
-        k1_route = e_route(E_op)
-        nfactor = None
-        if prob.n <= prob.m:
-            nf = woodbury.factorize_nside(prob.E, state.free,
-                                         lp._wb_ratio(cfg))
-            nfactor = (nf.hinv, nf.ete)
         state = solve_fused_from(state, prob, cfg, max_iters=max_iter,
                                  window=max(ws, 1000), nfactor=nfactor,
                                  E_op=E_op)
     else:
         # the JAX package's _residual_phase_xla (its l2f.py:640-650)
-        while state.it < max_iter and not bool(state.done.all()):
+        while state.it < max_iter and not profiling.read(
+                "l2f.tail_done", bool, state.done.all()):
             state, _ = lp.solve_window(state, prob, cfg, ws, record=False)
     sol, obj, infeas, n_fixed = _finalize(state, idx_map, fixed_full,
                                           free_full, orig_prob,
@@ -302,51 +317,62 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     scores veto contradicted fixes (``pcfg.ensemble_veto``; the JAX
     package's ``variables2``), scored by K2 on its own operand.
     ``tail_rho_step`` sets rho_change_step for the residual phase only.
-    ``timings`` (a dict) receives the phase wall times, each ended by a
-    device synchronisation, the tail's buckets, whether its bucket has
-    n <= m (K1's n-side mode on the K1 route), each phase's route,
-    ``policy_route`` and ``tail_route``, ``"k1"`` or ``"windows"``, and
-    on the K1 route E's route into K1, ``policy_e_route`` and
-    ``tail_e_route`` (``ops.fused_lp.E_ROUTES``; None on the windows
-    route).  Returns ``(final_state, out)`` with the
-    full-width binary solution, objective, iterations, infeasible rows
-    and fixing information."""
 
-    def _mark(key, t0):
-        if timings is not None:
-            if state.x.is_cuda:
-                torch.cuda.synchronize(state.x.device)
-            timings[key] = timings.get(key, 0.0) + time.perf_counter() - t0
-        return time.perf_counter()
-
+    ``timings`` (a dict) turns the tracer on for the solve
+    (``utils.profiling``; on the card CUDA events, read after one wait
+    for the solve's last event) and receives, summed over the solve,
+    the seconds of its spans (``SPAN_KEYS``: the policy phase
+    ``policy_s``, the tail ``tail_s``, within it compaction
+    ``compact_s`` and selection ``select_s``; the ``core.lp`` windows
+    ``lp_window_s``, the Woodbury inverses ``factor_s``), its host
+    reads (``host_reads``, per site ``host_read_sites``, the host's time
+    in them ``host_read_wait_s``), the tail's buckets, whether its
+    bucket has n <= m (K1's n-side mode on the K1 route), each phase's
+    route, ``policy_route`` and ``tail_route``, ``"k1"`` or
+    ``"windows"``, and on the K1 route E's route into K1,
+    ``policy_e_route`` and ``tail_e_route`` (``ops.fused_lp.E_ROUTES``;
+    None on the windows route).  Without it the solve creates no event
+    and makes only the host reads it needs.  Returns ``(final_state,
+    out)`` with the full-width binary solution, objective, iterations,
+    infeasible rows and fixing information."""
     if max_iter is None:
         max_iter = cfg.max_iters
-    t0 = time.perf_counter()
-    state = lp.init_state(prob, cfg)
-    packed = pack_policy_weights(model)
-    policy_op = policy_operand(packed)
-    veto = None
-    if model2 is not None:
-        packed2 = pack_policy_weights(model2)
-        veto = (packed2, policy_operand(packed2))
-    policy_route = _route(prob.m, prob.n, cfg)
-    state, mf, mr, policy_e_route = _policy_phase(
-        state, prob, packed, cfg, pcfg, ws, policy_windows, max_iter,
-        policy_route, policy_op, veto)
-    t0 = _mark("policy_s", t0)
+    tracer = None if timings is None else profiling.PhaseTimer(prob.device)
+    with profiling.tracing(tracer):
+        with profiling.span("l2f.policy"):
+            state = lp.init_state(prob, cfg)
+            packed = pack_policy_weights(model)
+            policy_op = policy_operand(packed)
+            veto = None
+            if model2 is not None:
+                packed2 = pack_policy_weights(model2)
+                veto = (packed2, policy_operand(packed2))
+            policy_route = _route(prob.m, prob.n, cfg)
+            state, mf, mr, policy_e_route = _policy_phase(
+                state, prob, packed, cfg, pcfg, ws, policy_windows,
+                max_iter, policy_route, policy_op, veto)
 
-    fixed_full, free_full = state.fixed_val, state.free
-    n_b = _bucket(mf, min_bucket, prob.n)
-    m_b = _bucket(mr, m_min_bucket, prob.m)
-    cfg_tail = cfg if tail_rho_step is None \
-        else cfg.replace(rho_change_step=tail_rho_step)
-    state, sol_full, obj, obj_last, infeas, n_fixed, tail_route, \
-        tail_e_route = \
-        _tail_phase(state, prob, cfg_tail, n_b, m_b, rho_boost_iters,
-                    max_iter, ws, repair_rounds, swap_rounds,
-                    cfg_changed=cfg_tail is not cfg)
-    t0 = _mark("tail_s", t0)
+        with profiling.span("l2f.tail"):
+            fixed_full, free_full = state.fixed_val, state.free
+            n_b = _bucket(mf, min_bucket, prob.n)
+            m_b = _bucket(mr, m_min_bucket, prob.m)
+            cfg_tail = cfg if tail_rho_step is None \
+                else cfg.replace(rho_change_step=tail_rho_step)
+            state, sol_full, obj, obj_last, infeas, n_fixed, tail_route, \
+                tail_e_route = \
+                _tail_phase(state, prob, cfg_tail, n_b, m_b,
+                            rho_boost_iters, max_iter, ws, repair_rounds,
+                            swap_rounds, cfg_changed=cfg_tail is not cfg)
     if timings is not None:
+        sums = tracer.finish().sums()
+        for name, key in SPAN_KEYS.items():
+            timings[key] = timings.get(key, 0.0) + sums.get(name, 0.0)
+        sites = timings.setdefault("host_read_sites", {})
+        for site, k in tracer.reads().items():
+            sites[site] = sites.get(site, 0) + k
+        timings["host_reads"] = sum(sites.values())
+        timings["host_read_wait_s"] = timings.get("host_read_wait_s", 0.0) \
+            + tracer.read_wait
         timings["buckets"] = (n_b, m_b)
         timings["nside"] = n_b <= m_b
         timings["policy_route"] = policy_route

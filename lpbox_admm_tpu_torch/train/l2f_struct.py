@@ -23,13 +23,21 @@ LPboxADMMsolver.cpp:1098-1574) on the struct problems of
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.problem import Device, LpProblem, as_device
+from ..utils import profiling
+
+#: the ``timings`` keys of the tracer's spans in ``l2f_solve_struct``
+#: (``win_s``, ``score_s``: the policy windows and their scoring; the
+#: rest ``host_fix_compact``'s stages)
+TIMING_SPANS = {"struct.window": "win_s", "struct.score": "score_s",
+                "struct.fetch": "fetch_s", "struct.scipy": "scipy_s",
+                "struct.assemble": "assemble_s", "struct.ginv": "ginv_s",
+                "struct.upload": "upload_s", "struct.refresh": "refresh_s"}
 
 
 def _host(t) -> np.ndarray:
@@ -109,8 +117,7 @@ def _scatter_rows(rows, cols, vals, shape, dt, device):
 
 
 def host_fix_compact(state, prob, inst, row_map, vec, cfg_tail,
-                     align=512, e_dtype="bfloat16", m1_full=None,
-                     timings=None):
+                     align=512, e_dtype="bfloat16", m1_full=None):
     """Apply the fix vector and shrink to a dense problem (B = 1).
 
     The reduction algebra of ``core.lp.compact`` (the reference's
@@ -131,141 +138,136 @@ def host_fix_compact(state, prob, inst, row_map, vec, cfg_tail,
     * m-side state (y3, z4) is gathered through ``row_map`` (the struct
       layout reorders rows).
 
-    Returns (state_red, prob_red, carry); ``carry`` holds the full-width
-    fixing snapshot for ``report_full``."""
+    Its stages are the tracer's spans ``struct.fetch``, ``struct.scipy``,
+    ``struct.assemble``, ``struct.ginv``, ``struct.upload`` and
+    ``struct.refresh`` (``utils.profiling``).  Returns (state_red,
+    prob_red, carry); ``carry`` holds the full-width fixing snapshot for
+    ``report_full``."""
     import scipy.sparse as sp
     from scipy.linalg import cho_factor, cho_solve
     from ..core import lp
     from ..ops.struct_ginv import StructGinv, schur_blocks
 
-    tmark = [time.time()]
+    with profiling.span("struct.fetch"):
+        dev = prob.device
+        p, (r, c, v, shape) = inst
+        m_orig, n_valid = int(shape[0]), int(shape[1])
+        b_orig = -np.asarray(p, np.float64)  # prices negate (make_problem)
 
-    def mark(key):
-        if timings is not None:
-            now = time.time()
-            timings[key] = timings.get(key, 0.0) + now - tmark[0]
-            tmark[0] = now
+        keys = ("x", "y1", "y2", "y3", "z1", "z2", "z4", "free",
+                "fixed_val", "sum_fix_obj", "obj_ring", "obj_count", "done",
+                "cur_obj", "best_bin_obj", "best_sol", "x_prev")
+        st = {k: _host(getattr(state, k)) for k in keys}
+    with profiling.span("struct.scipy"):
+        free_old = st["free"][0, :n_valid]
+        vecv = vec[:n_valid]
+        # a converged instance fixes nothing further (apply_fix's active
+        # gate)
+        newly = free_old & (vecv >= 0.0) & (not bool(st["done"][0]))
+        val = np.clip(vecv, 0.0, 1.0)
+        free_new = free_old & ~newly
+        fixed_vals = np.where(newly, val, st["fixed_val"][0, :n_valid])
+        fixed_vals = np.where(free_new, 0.0, fixed_vals)
+        sum_fix = float(st["sum_fix_obj"][0]) \
+            + float((b_orig * val * newly).sum())
 
-    dev = prob.device
-    p, (r, c, v, shape) = inst
-    m_orig, n_valid = int(shape[0]), int(shape[1])
-    b_orig = -np.asarray(p, np.float64)      # prices negate (make_problem)
+        C = sp.csr_matrix((np.asarray(v, np.float64),
+                           (np.asarray(r), np.asarray(c))),
+                          shape=(m_orig, n_valid))
+        f_eff = 1.0 - C @ fixed_vals
+    with profiling.span("struct.assemble"):
+        ratio = lp._wb_ratio(cfg_tail)
+        free_cols = np.where(free_new)[0]
+        Cc = C[:, free_cols].tocsr()
+        kept_rows = np.where(Cc.getnnz(axis=1) > 0)[0]
 
-    keys = ("x", "y1", "y2", "y3", "z1", "z2", "z4", "free", "fixed_val",
-            "sum_fix_obj", "obj_ring", "obj_count", "done", "cur_obj",
-            "best_bin_obj", "best_sol", "x_prev")
-    st = {k: _host(getattr(state, k)) for k in keys}
-    mark("fetch_s")
-    free_old = st["free"][0, :n_valid]
-    vecv = vec[:n_valid]
-    # a converged instance fixes nothing further (apply_fix's active gate)
-    newly = free_old & (vecv >= 0.0) & (not bool(st["done"][0]))
-    val = np.clip(vecv, 0.0, 1.0)
-    free_new = free_old & ~newly
-    fixed_vals = np.where(newly, val, st["fixed_val"][0, :n_valid])
-    fixed_vals = np.where(free_new, 0.0, fixed_vals)
-    sum_fix = float(st["sum_fix_obj"][0]) \
-        + float((b_orig * val * newly).sum())
+        def rup(x):
+            return max(align, -(-x // align) * align)
 
-    C = sp.csr_matrix((np.asarray(v, np.float64),
-                       (np.asarray(r), np.asarray(c))),
-                      shape=(m_orig, n_valid))
-    f_eff = 1.0 - C @ fixed_vals
-    mark("scipy_s")
-    ratio = lp._wb_ratio(cfg_tail)
-    free_cols = np.where(free_new)[0]
-    Cc = C[:, free_cols].tocsr()
-    kept_rows = np.where(Cc.getnnz(axis=1) > 0)[0]
+        if m1_full is not None:
+            # [items | dummies], each block padded: the reduced G^-1 is a
+            # StructGinv
+            is_item = row_map[kept_rows] < m1_full
+            kept_rows = np.concatenate([kept_rows[is_item],
+                                        kept_rows[~is_item]])
+            ik, dk = int(is_item.sum()), int((~is_item).sum())
+            m1p, m2p = rup(ik), rup(dk)
+            m_pad = m1p + m2p
+            pos = np.concatenate([np.arange(ik), m1p + np.arange(dk)])
+        else:
+            m_pad = rup(len(kept_rows))
+            pos = np.arange(len(kept_rows))
 
-    def rup(x):
-        return max(align, -(-x // align) * align)
+        Cr = Cc[kept_rows]
+        m_v, n_v = Cr.shape
+        n_pad = rup(n_v)
+        if e_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"e_dtype {e_dtype!r}")
+        edt = torch.bfloat16 if e_dtype == "bfloat16" else torch.float32
+        coo_r = Cr.tocoo()
+        E_dev = _scatter_rows(pos[coo_r.row], coo_r.col,
+                              coo_r.data.astype(np.float32),
+                              (1, m_pad, n_pad), edt, dev)
+        b_red = np.zeros((1, n_pad), np.float32)
+        b_red[0, :n_v] = b_orig[free_cols]
+        f_red = np.ones((1, m_pad), np.float32)
+        f_red[0, pos] = f_eff[kept_rows]
+        vmask = np.zeros((1, n_pad), bool)
+        vmask[0, :n_v] = True
+        rmask = np.zeros((1, m_pad), bool)
+        rmask[0, pos] = True
+    with profiling.span("struct.ginv"):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if m1_full is not None:
+            Cl = sp.csr_matrix((coo_r.data, (pos[coo_r.row], coo_r.col)),
+                               shape=(m_pad, n_v))
+            sinv, Bm, dinv = schur_blocks(Cl, m1p, m2p, ratio)
+            ginv = StructGinv(sinv=t(sinv.astype(np.float32))[None],
+                              b12=t(Bm.astype(np.float32))[None],
+                              dinv=t(dinv.astype(np.float32))[None])
+        else:
+            G = (Cr @ Cr.T).toarray()
+            gi = cho_solve(cho_factor(G + ratio * np.eye(m_v),
+                                      lower=True), np.eye(m_v))
+            gpad = np.zeros((1, m_pad, m_pad), np.float32)
+            gpad[0, :m_v, :m_v] = gi
+            ginv = t(gpad)
+    with profiling.span("struct.upload"):
+        prob_red = LpProblem(b=t(b_red), E=E_dev, f=t(f_red),
+                             row_mask=t(rmask), var_mask=t(vmask))
 
-    if m1_full is not None:
-        # [items | dummies], each block padded: the reduced G^-1 is a
-        # StructGinv
-        is_item = row_map[kept_rows] < m1_full
-        kept_rows = np.concatenate([kept_rows[is_item], kept_rows[~is_item]])
-        ik, dk = int(is_item.sum()), int((~is_item).sum())
-        m1p, m2p = rup(ik), rup(dk)
-        m_pad = m1p + m2p
-        pos = np.concatenate([np.arange(ik), m1p + np.arange(dk)])
-    else:
-        m_pad = rup(len(kept_rows))
-        pos = np.arange(len(kept_rows))
+        def gn(a):                              # n-side gather and pad
+            out = np.zeros((1, n_pad), np.float32)
+            out[0, :n_v] = a[0, free_cols]
+            return t(out)
 
-    Cr = Cc[kept_rows]
-    m_v, n_v = Cr.shape
-    n_pad = rup(n_v)
-    if e_dtype not in ("bfloat16", "float32"):
-        raise ValueError(f"e_dtype {e_dtype!r}")
-    edt = torch.bfloat16 if e_dtype == "bfloat16" else torch.float32
-    coo_r = Cr.tocoo()
-    E_dev = _scatter_rows(pos[coo_r.row], coo_r.col,
-                          coo_r.data.astype(np.float32),
-                          (1, m_pad, n_pad), edt, dev)
-    b_red = np.zeros((1, n_pad), np.float32)
-    b_red[0, :n_v] = b_orig[free_cols]
-    f_red = np.ones((1, m_pad), np.float32)
-    f_red[0, pos] = f_eff[kept_rows]
-    vmask = np.zeros((1, n_pad), bool)
-    vmask[0, :n_v] = True
-    rmask = np.zeros((1, m_pad), bool)
-    rmask[0, pos] = True
-    mark("assemble_s")
+        srows = row_map[kept_rows]  # struct rows of the kept original rows
 
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    if m1_full is not None:
-        Cl = sp.csr_matrix((coo_r.data, (pos[coo_r.row], coo_r.col)),
-                           shape=(m_pad, n_v))
-        sinv, Bm, dinv = schur_blocks(Cl, m1p, m2p, ratio)
-        ginv = StructGinv(sinv=t(sinv.astype(np.float32))[None],
-                          b12=t(Bm.astype(np.float32))[None],
-                          dinv=t(dinv.astype(np.float32))[None])
-    else:
-        G = (Cr @ Cr.T).toarray()
-        gi = cho_solve(cho_factor(G + ratio * np.eye(m_v), lower=True),
-                       np.eye(m_v))
-        gpad = np.zeros((1, m_pad, m_pad), np.float32)
-        gpad[0, :m_v, :m_v] = gi
-        ginv = t(gpad)
-    mark("ginv_s")
+        def gm(a):
+            out = np.zeros((1, m_pad), np.float32)
+            out[0, pos] = a[0, srows]
+            return t(out)
 
-    prob_red = LpProblem(b=t(b_red), E=E_dev, f=t(f_red),
-                         row_mask=t(rmask), var_mask=t(vmask))
-
-    def gn(a):                              # n-side gather and pad
-        out = np.zeros((1, n_pad), np.float32)
-        out[0, :n_v] = a[0, free_cols]
-        return t(out)
-
-    srows = row_map[kept_rows]    # struct rows of the kept original rows
-
-    def gm(a):
-        out = np.zeros((1, m_pad), np.float32)
-        out[0, pos] = a[0, srows]
-        return t(out)
-
-    # ex = E_red @ x_red from the COO on the host
-    ex_np = np.zeros((1, m_pad), np.float32)
-    ex_np[0, pos] = Cr @ st["x"][0, free_cols].astype(np.float64)
-    f32 = lambda a: t(np.asarray(a, np.float32))
-    state_red = lp.LpState(
-        x=gn(st["x"]), y1=gn(st["y1"]), y2=gn(st["y2"]), y3=gm(st["y3"]),
-        z1=gn(st["z1"]), z2=gn(st["z2"]), z4=gm(st["z4"]),
-        free=t(vmask), fixed_val=f32(np.zeros((1, n_pad))),
-        f_eff=t(f_red), sum_fix_obj=f32([sum_fix]),
-        obj_ring=f32(st["obj_ring"]), obj_count=t(st["obj_count"]),
-        it=state.it, done=t(st["done"]),   # sticky, as in core compact
-        cg_fail=t(np.zeros((1,), bool)),
-        cur_obj=f32(st["cur_obj"]), best_bin_obj=f32(st["best_bin_obj"]),
-        best_sol=gn(st["best_sol"]), x_prev=gn(st["x_prev"]),
-        fix_count=t(np.zeros((1, n_pad), np.int32)),
-        ex=t(ex_np), ginv=ginv, et_next=f32(np.zeros((1, n_pad))))
-    mark("upload_s")
-    state_red = lp.refresh_et_next(state_red, prob_red, cfg_tail)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    mark("refresh_s")
+        # ex = E_red @ x_red from the COO on the host
+        ex_np = np.zeros((1, m_pad), np.float32)
+        ex_np[0, pos] = Cr @ st["x"][0, free_cols].astype(np.float64)
+        f32 = lambda a: t(np.asarray(a, np.float32))
+        state_red = lp.LpState(
+            x=gn(st["x"]), y1=gn(st["y1"]), y2=gn(st["y2"]),
+            y3=gm(st["y3"]), z1=gn(st["z1"]), z2=gn(st["z2"]),
+            z4=gm(st["z4"]),
+            free=t(vmask), fixed_val=f32(np.zeros((1, n_pad))),
+            f_eff=t(f_red), sum_fix_obj=f32([sum_fix]),
+            obj_ring=f32(st["obj_ring"]), obj_count=t(st["obj_count"]),
+            it=state.it, done=t(st["done"]),   # sticky, as in core compact
+            cg_fail=t(np.zeros((1,), bool)),
+            cur_obj=f32(st["cur_obj"]),
+            best_bin_obj=f32(st["best_bin_obj"]),
+            best_sol=gn(st["best_sol"]), x_prev=gn(st["x_prev"]),
+            fix_count=t(np.zeros((1, n_pad), np.int32)),
+            ex=t(ex_np), ginv=ginv, et_next=f32(np.zeros((1, n_pad))))
+    with profiling.span("struct.refresh"):
+        state_red = lp.refresh_et_next(state_red, prob_red, cfg_tail)
     carry = {"free_cols": free_cols, "fixed_vals": fixed_vals,
              "free_new": free_new, "C": C, "b_orig": b_orig,
              "n_valid": n_valid}
@@ -317,7 +319,11 @@ def l2f_solve_struct(prob, ginv, inst, row_map, score, cfg, *,
     the card).  ``reduced_ginv`` picks the reduced problem's inverse
     (``"schur"`` or ``"dense"``, see ``host_fix_compact``); the tail
     runs ``core.lp`` windows either way.  Returns the ``report_full``
-    dict with the stage walls and the iteration count."""
+    dict with the stage times (``policy_s``, ``compact_s``, ``tail_s``)
+    and the iteration count; ``timings`` (a dict) receives the finer
+    spans (``TIMING_SPANS``).  The stages are the tracer's spans
+    (``utils.profiling``: CUDA events on the card, read after one wait
+    at the end)."""
     from ..core import lp
 
     if reduced_ginv not in ("schur", "dense"):
@@ -328,47 +334,42 @@ def l2f_solve_struct(prob, ginv, inst, row_map, score, cfg, *,
         window = 100 if prob.n >= 400_000 else 500
     b_h = _host(prob.b)[0, :n_valid]
     margins = gate_margins(b_h, conf, damage_gate)
-    sync = (lambda: torch.cuda.synchronize(prob.device)) \
-        if prob.device.type == "cuda" else (lambda: None)
 
-    if timings is None:
-        timings = {}
-    t0 = time.time()
-    state = lp.init_state(prob, cfg, ginv=ginv)
+    tracer = profiling.PhaseTimer(prob.device)
+    with tracer:
+        with profiling.span("struct.policy"):
+            state = lp.init_state(prob, cfg, ginv=ginv)
 
-    def scored_windows():
-        nonlocal state
-        for w in range(policy_windows):
-            t1 = time.time()
-            state, traj = lp.solve_window(state, prob, cfg, ws, record=True,
-                                          skip_cvg_at=0 if w == 0 else None)
-            sync()
-            timings["win_s"] = timings.get("win_s", 0.0) + time.time() - t1
-            t1 = time.time()
-            sig = _host(score(traj[0, :n_valid, :]))
-            timings["score_s"] = timings.get("score_s", 0.0) \
-                + time.time() - t1
-            yield sig
+            def scored_windows():
+                nonlocal state
+                for w in range(policy_windows):
+                    with profiling.span("struct.window"):
+                        state, traj = lp.solve_window(
+                            state, prob, cfg, ws, record=True,
+                            skip_cvg_at=0 if w == 0 else None)
+                    with profiling.span("struct.score"):
+                        sig = _host(score(traj[0, :n_valid, :]))
+                    yield sig
 
-    vec = deter_fix_2(scored_windows(), margins, fix_windows)
-    policy_s = time.time() - t0
+            vec = deter_fix_2(scored_windows(), margins, fix_windows)
 
-    t0 = time.time()
-    state_red, prob_red, carry = host_fix_compact(
-        state, prob, inst, row_map, vec, cfg_tail, e_dtype=e_dtype,
-        m1_full=prob.E.m1 if reduced_ginv == "schur" else None,
-        timings=timings)
-    compact_s = time.time() - t0
+        with profiling.span("struct.compact"):
+            state_red, prob_red, carry = host_fix_compact(
+                state, prob, inst, row_map, vec, cfg_tail, e_dtype=e_dtype,
+                m1_full=prob.E.m1 if reduced_ginv == "schur" else None)
 
-    t0 = time.time()
-    while state_red.it < cap and not bool(state_red.done.all()):
-        state_red, _ = lp.solve_window(state_red, prob_red, cfg_tail, window,
-                                       record=False)
-    sync()
-    tail_s = time.time() - t0
+        with profiling.span("struct.tail"):
+            while state_red.it < cap and not bool(state_red.done.all()):
+                state_red, _ = lp.solve_window(state_red, prob_red, cfg_tail,
+                                               window, record=False)
+    sums = tracer.finish().sums()
+    if timings is not None:
+        for name, key in TIMING_SPANS.items():
+            timings[key] = timings.get(key, 0.0) + sums.get(name, 0.0)
 
     out = report_full(state_red, carry, oracle=oracle_obj)
-    out.update(policy_s=policy_s, compact_s=compact_s, tail_s=tail_s,
+    out.update(policy_s=sums["struct.policy"],
+               compact_s=sums["struct.compact"], tail_s=sums["struct.tail"],
                iterations=state_red.it, decided=int((vec >= 0).sum()),
                n_valid=n_valid, n_red=len(carry["free_cols"]),
                red_shape=tuple(prob_red.E.shape))

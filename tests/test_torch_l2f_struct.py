@@ -347,3 +347,23 @@ def test_mega_train_phase_matches_jax(tmp_path, monkeypatch):
     want = np.asarray(jl2f.policy_scores(jbuild("mha"), jvars,
                                          jnp.asarray(rows), JPC(net="mha")))
     assert np.abs(got - want).max() <= 1e-5
+
+
+def test_l2f_solve_struct_stage_spans(inst):
+    """The struct solve's stage times are the tracer's spans: every
+    ``timings`` key that ``scripts/mega_l2f.py`` prints, the policy
+    windows and their scoring inside ``policy_s``, the compaction's six
+    stages inside ``compact_s``."""
+    tp, tg, trm = tmega.build_struct(inst, device="cpu")
+    tm = {}
+    out = tls.l2f_solve_struct(tp, tg, inst, trm[0],
+                               lambda r: torch.clamp(r[:, -1], 0.0, 1.0),
+                               CFG_T, conf=0.8, ws=25, policy_windows=2,
+                               cap=100, window=25, timings=tm)
+    assert set(tm) == {"win_s", "score_s", "fetch_s", "scipy_s",
+                       "assemble_s", "ginv_s", "upload_s", "refresh_s"}
+    assert 0 < tm["win_s"] + tm["score_s"] <= out["policy_s"]
+    stages = sum(tm[k] for k in ("fetch_s", "scipy_s", "assemble_s",
+                                 "ginv_s", "upload_s", "refresh_s"))
+    assert 0 < stages <= out["compact_s"]
+    assert out["tail_s"] > 0 and out["iterations"] == 100
