@@ -26,9 +26,12 @@ Then data parallelism over instances (``parallel.mesh``; the ``dp``
 phase, after training): a world-1 NCCL group in this process solves the
 sharded CA-500 batch with K1 and gathers it back, bit for bit the main
 path's plain solve; two gloo ranks on the one card (spawned, with a
-deadline), 64 instances each, run the plain K1 solve (gathered: the main
-path's bits), the l2f solve (K1, K2: the main path's fixes per instance,
-its gap within 0.1 point) and one training step at full width on 20 480
+deadline), 64 instances each, run the plain K1 solve (gathered: the bits
+of each shard solved alone in this process; K1's clusters follow a
+launch's live count, so a shard's bits are its own, not the batch's),
+the l2f solve (K1, K2: the main path's fixes per instance, each shard's
+objectives and gap its own one-process solve's) and one training step
+at full width on 20 480
 rows each (the one-process step's loss and gradient, the same weights on
 both ranks), with two planted faults (BatchNorm over each rank's rows,
 each rank's loss over its own rows) that must cross the step's bound;
@@ -108,7 +111,17 @@ memory at CA-500 (the ``int8-resident`` route of the plain and the l2f
 solve), streamed at the xl l2f tail's bucket (``int8-stream``); each
 K1 check launches the same window again on the f32-stream route (E as
 stored) and requires the same bits in every output, and the main path's
-routes are required.
+routes are required.  Where few instances are live, the tails spread
+each over a cluster of C blocks (``fused_lp.split_plan``), which adds
+the transpose products' partials in another order: K1 on clusters is
+held to the plain version within K1_TOL, each iteration from the
+kernel's own state, with a repeat launch that must give the same bits,
+done instances returned as they came and a planted fault (the rows of
+E of one block's share zeroed), at the compacted (256, 256) bucket
+(55, 30 and 1 live: C = 2 with the factor's rows streamed, 4 and 8 with
+them resident), from the state the CA-500 tail handed K1 (55, 30 and 15
+live) and from the xl tail's (its own live count, with the C its first
+launch took, and 15 live: C = 8).
 
 Phases, cheapest first, each under its own deadline and a watchdog that
 turns a hang into a traceback and a non-zero exit: device, build (one
@@ -139,13 +152,14 @@ step); the whole script under 780 s.
 Fails on a build or launch error, a kernel/plain disagreement, a
 planted fault that a kernel's limit does not catch, a repeat launch
 that differs, a one-byte K1 route that differs from the f32 route in
-one bit, a non-finite value, an infeasible instance, a kernel that its path did not
+one bit, an xl tail launch on another C than the one checked, a non-finite value, an infeasible instance, a kernel that its path did not
 launch, a K1 launch of the main path on another route than its data
 gives, an l2f mean objective gap above +2% against the plain solve, a
-resumed training whose loss does not fall, a sharded solve (world-1 NCCL
-or two gloo ranks) that differs from the main path's in one bit, a rank
-that fails, hangs or launches neither K1 nor K2, a 2-rank l2f with other
-fixes or a gap more than 0.1 point from the main path's, a
+resumed training whose loss does not fall, a world-1 NCCL solve that
+differs from the main path's, or a gloo rank's from its shard's
+one-process solve, in one bit, a rank that fails, hangs or launches
+neither K1 nor K2, a 2-rank l2f with other fixes than the main path's or
+a gap more than 0.1 point from its shards' one-process solves', a
 data-parallel step off the one-process step or a planted dp fault
 within its bound, a card step that differs
 from the CPU step, a compacting evaluation of the trained policy more
@@ -353,12 +367,14 @@ ATTACK_SEARCH_ROUNDS = 2
 # for bit the main path's); DP_RANKS gloo ranks on the one card (NCCL
 # takes one rank a card), spawned with a deadline, each on 64 of the 128
 # instances: the plain K1 solve (gathered objectives and solutions bit
-# for bit the main path's, 0 infeasible), l2f_solve_compact at the main
-# path's operating point (K1, K2; fixes per instance the main path's, 0
-# infeasible, the mean gap against the ranks' gathered plain solve within
-# DP_GAP of the main path's; each shard's tail bucket logged, and its
-# objectives bit for bit the main path's where its bucket is the
-# batch's), and one training step from the shipped checkpoint with its
+# for bit those of each shard solved alone in this process, 0
+# infeasible; K1's clusters follow a launch's live count, so a shard's
+# bits are its own solve's, not the batch's), l2f_solve_compact at the
+# main path's operating point (K1, K2; fixes per instance the main
+# path's, 0 infeasible, each shard's objectives bit for bit its
+# one-process l2f solve's, the mean gap against the ranks' gathered plain
+# solve within DP_GAP of the shards' one-process gap; each shard's tail
+# bucket logged), and one training step from the shipped checkpoint with its
 # Adam state on 20 480 rows a rank (loss within 1e-5 relative and the
 # gradient within STEP_GRAD_TOL of max |g| of the one-process step on
 # the card; parameters the same bits on both ranks).  Two planted faults:
@@ -780,6 +796,13 @@ def k1_checks(tp, cfg, fused_lp, lp, woodbury):
     kn = fused(sc, pc, cfg, 20, nfactor=(nf.hinv, nf.ete))
     pn = fused_lp.lp_window_plain(sc, pc, cfg, 20, nfactor=(nf.hinv, nf.ete))
     compare("nside-256x256-20it", kn, pn)
+    # the same state on clusters at the tail's live counts: 55 (C = 2,
+    # the factor's rows streamed), 30 (C = 4) and 1 (C = 8; both with
+    # the factor's rows resident)
+    res["clusters at the compacted bucket"] = {
+        "cases": k1_cluster_check(sc, pc, cfg, (nf.hinv, nf.ete), fused_lp,
+                                  compare, (55, 30, 1), "nside-256x256",
+                                  True)}
     # incumbent stride 8 from the recorded window's end state
     c8 = cfg.replace(incumbent_stride=8)
     k8 = fused(k, tp, c8, 20)
@@ -1210,7 +1233,8 @@ def dp_phase(prob, st, out, tm, gap, rows, budget):
     from lpbox_admm_tpu_torch.config import PolicyConfig
     from lpbox_admm_tpu_torch.ops import fused_lp
     from lpbox_admm_tpu_torch.parallel import mesh as pm
-    from lpbox_admm_tpu_torch.train import imitation
+    from lpbox_admm_tpu_torch.train import imitation, l2f
+    from lpbox_admm_tpu_torch.utils.checkpoint import load_policy
     t_start = time.perf_counter()
     cfg, pcfg = smoke_configs()
     res = {}
@@ -1257,6 +1281,31 @@ def dp_phase(prob, st, out, tm, gap, rows, budget):
             grad1 = torch.cat([p.grad.reshape(-1).cpu()
                                for p in ts.model.parameters()])
             res["step_one_process_s"] = time.perf_counter() - t0
+            # each shard solved alone in this process, while the ranks
+            # run: their reference (a shard's live counts, and so K1's
+            # clusters, are not the batch's)
+            t0 = time.perf_counter()
+            model = load_policy(CKPT, device="cuda")
+            k = prob.batch // DP_RANKS
+            refs = []
+            for rk in range(DP_RANKS):
+                sh = type(prob)(**{f: getattr(prob, f)[rk * k:(rk + 1) * k]
+                                   for f in DP_FIELDS})
+                s_sh = fused_lp.solve_fused(sh, cfg, max_iters=cfg.max_iters,
+                                            window=100)
+                _, obj_sh, _ = lp.select_solution(
+                    sh, lp.solution(s_sh), lp.solution_best(s_sh),
+                    repair_rounds=REPAIR_ROUNDS, swap_rounds=SWAP_ROUNDS)
+                _, lo_sh = l2f.l2f_solve_compact(
+                    sh, model, cfg, pcfg, ws=100, policy_windows=3,
+                    rho_boost_iters=5000, max_iter=10000,
+                    repair_rounds=REPAIR_ROUNDS, swap_rounds=SWAP_ROUNDS)
+                refs.append({"obj_k1": lp.objective(s_sh).cpu(),
+                             "sol_k1": lp.solution(s_sh).cpu(),
+                             "obj": obj_sh.cpu(),
+                             "l2f_obj": lo_sh["obj"].cpu()})
+            ref = {f: torch.cat([r[f] for r in refs]) for f in refs[0]}
+            res["shard_refs_s"] = time.perf_counter() - t0
             ranks = ranks_f.result()
             res["ranks_s"] = time.perf_counter() - t_ranks
     same1 = torch_equal(g1["obj"], lp.objective(st)) and \
@@ -1269,19 +1318,23 @@ def dp_phase(prob, st, out, tm, gap, rows, budget):
     B = prob.batch
     k = B // DP_RANKS
     pl, l2 = r0["plain"], r0["l2f"]
-    same_plain = torch_equal(pl["obj_k1"], lp.objective(st).cpu()) and \
-        torch_equal(pl["sol_k1"], lp.solution(st).cpu())
+    same_plain = torch_equal(pl["obj_k1"], ref["obj_k1"]) and \
+        torch_equal(pl["sol_k1"], ref["sol_k1"])
+    # not held (K1's clusters follow a launch's live count, so a shard's
+    # bits and gap are its own): the gathered results against the main
+    # path's whole-batch solves, logged so that a drift shows
+    main_plain_bits = torch_equal(pl["obj_k1"], lp.objective(st).cpu()) \
+        and torch_equal(pl["sol_k1"], lp.solution(st).cpu())
     n_inf_plain = int((pl["inf"] > 0).sum())
     gap_dp = ((l2["obj"] - pl["obj"]) / pl["obj"].abs()).mean().item()
+    gap_ref = ((ref["l2f_obj"] - ref["obj"]) / ref["obj"].abs()).mean() \
+        .item()
     gap_main = gap.mean().item()
     same_fixes = torch_equal(l2["n_fixed"], out["n_fixed"].cpu())
     n_inf_l2f = int((l2["inf"] > 0).sum())
     buckets = [r["buckets"] for r in ranks]
-    bits = {}
-    for rk, r in enumerate(ranks):
-        if tuple(r["buckets"]) == tuple(tm["buckets"]):
-            bits[rk] = torch_equal(r["l2f_obj"],
-                                   out["obj"][rk * k:(rk + 1) * k].cpu())
+    bits = {rk: torch_equal(r["l2f_obj"], refs[rk]["l2f_obj"])
+            for rk, r in enumerate(ranks)}
     launches = [{"plain": r["launches_plain"], "l2f": r["launches_l2f"]}
                 for r in ranks]
     G = float(grad1.abs().max())
@@ -1297,9 +1350,11 @@ def dp_phase(prob, st, out, tm, gap, rows, budget):
                                      "plain_it", "l2f_s", "buckets",
                                      "routes")} for r in ranks],
         launches=launches, plain_bits=same_plain,
-        plain_infeasible=n_inf_plain, l2f_gap=gap_dp,
+        plain_infeasible=n_inf_plain, l2f_gap=gap_dp, l2f_gap_ref=gap_ref,
+        plain_bits_main_not_held=main_plain_bits,
+        l2f_gap_minus_main_not_held=gap_dp - gap_main,
         l2f_gap_main=gap_main, l2f_same_fixes=same_fixes,
-        l2f_infeasible=n_inf_l2f, l2f_bits_where_bucket_equal=bits,
+        l2f_infeasible=n_inf_l2f, l2f_bits_of_shard_solves=bits,
         main_bucket=tm["buckets"], step_loss_rel_err=loss_err,
         step_grad=d_sound, plant_bn=d_bn, plant_loss=d_loss,
         same_params=same_params,
@@ -1311,12 +1366,17 @@ def dp_phase(prob, st, out, tm, gap, rows, budget):
             f"({r['plain_it']} it), l2f {r['l2f_s']:.2f} s, tail bucket "
             f"{tuple(r['buckets'])}, routes {r['routes']}, launches "
             f"{launches[i]}" for i, r in enumerate(ranks)))
-    log(f"  gathered plain: bit for bit the main path's {same_plain}, "
-        f"infeasible {n_inf_plain}; l2f: gap {gap_dp:+.4%} (main path "
+    log(f"  gathered plain: bit for bit the shards' one-process solves' "
+        f"{same_plain}, infeasible {n_inf_plain}; l2f: gap {gap_dp:+.4%} "
+        f"(the shards' one-process solves {gap_ref:+.4%}, main path "
         f"{gap_main:+.4%}), fixes per instance the main path's "
         f"{same_fixes}, infeasible {n_inf_l2f}; the main path's bucket "
-        f"{tuple(tm['buckets'])}, shards with that bucket bit for bit: "
-        f"{bits}")
+        f"{tuple(tm['buckets'])}, the shards' {buckets}, objectives bit "
+        f"for bit the shards' one-process l2f solves': {bits}")
+    log(f"  not held: gathered plain bit for bit the main path's "
+        f"{main_plain_bits}; 2-rank l2f gap minus the main path's "
+        f"{gap_dp - gap_main:+.4%} (held: minus the shards' one-process "
+        f"{gap_dp - gap_ref:+.4%}, within {DP_GAP:.1%})")
     log(f"  DP step, 20 480 rows a rank, against the one-process step on "
         f"the card: loss rel. error {loss_err:.3e}, gradient "
         f"{d_sound:.3e} of max |g|; planted per-rank BatchNorm "
@@ -1324,15 +1384,16 @@ def dp_phase(prob, st, out, tm, gap, rows, budget):
         f"(bound {STEP_GRAD_TOL}); parameters equal on both ranks "
         f"{same_params}; step seconds {res['step_s']}")
     require(same_plain and n_inf_plain == 0,
-            "2-rank plain solve: the main path's bits, 0 infeasible")
+            "2-rank plain solve: the shards' one-process bits, 0 infeasible")
     require(all(l_["plain"]["K1"] > 0 and l_["l2f"]["K1"] > 0
                 and l_["l2f"]["K2"] > 0 for l_ in launches),
             f"every rank launched K1 and K2: {launches}")
     require(same_fixes and n_inf_l2f == 0,
             "2-rank l2f: the main path's fixes, 0 infeasible")
-    require(abs(gap_dp - gap_main) <= DP_GAP,
-            f"2-rank l2f gap within {DP_GAP:.1%} of the main path's")
-    require(all(bits.values()), f"shards with the batch's bucket: {bits}")
+    require(abs(gap_dp - gap_ref) <= DP_GAP,
+            f"2-rank l2f gap within {DP_GAP:.1%} of the shards' one-process "
+            f"solves'")
+    require(all(bits.values()), f"l2f shards' one-process bits: {bits}")
     require(loss_err <= 1e-5 and d_sound <= STEP_GRAD_TOL and same_params,
             "DP step = the one-process step on the card")
     require(d_loss > STEP_GRAD_TOL and (d_bn > STEP_GRAD_TOL
@@ -1429,7 +1490,10 @@ def xl_tail_k1_check(st, prob, cfg, nfactor, fused_lp, compare, W=20):
     the plain version runs each iteration from the kernel's own state (a
     shorter launch from the same start); its trajectory slot and every
     state field are compared, over iterations that include incumbent
-    ones."""
+    ones.  These launches run one block an instance; then K1 on clusters
+    from the same state (``k1_cluster_check``) at the path's live count,
+    with the C the path's first tail launch took, and at 15 live (C =
+    8).  Returns the cluster cases."""
     B, m, n = prob.E.shape
     side = "nside" if nfactor is not None else "mside"
     pair = K1Pair(fused_lp, "int8-stream")
@@ -1474,6 +1538,100 @@ def xl_tail_k1_check(st, prob, cfg, nfactor, fused_lp, compare, W=20):
         + " ".join(f"{f}={e[1]:.2e}" for f, e in amp.items())
         + f"; one {W}-iteration launch against the plain version: "
         + " ".join(f"{f}={e[1]:.2e}" for f, e in straight.items()))
+    # on clusters: at the path's live count, with the plan's C (what the
+    # path's first tail launch ran), and at 15 live (C = 8)
+    return k1_cluster_check(st, prob, cfg, nfactor, fused_lp, compare,
+                            (int((~st.done).sum()), 15), "xl-tail", False,
+                            W)
+
+
+def k1_cluster(s, prob, cfg, window, C, nfactor, fused_lp, E_op):
+    """``window`` K1 iterations from ``s`` on clusters of ``C`` blocks an
+    instance (``window_cuda``; not counted in the path's launches)."""
+    a = fused_lp.window_inputs(s, prob, cfg, nfactor, E_op)._replace(
+        cluster=C)
+    out = fused_lp.window_cuda(a, cfg, s.it, window)
+    return fused_lp.window_state(s, prob, cfg, window, out, False)
+
+
+def k1_cluster_check(st, prob, cfg, nfactor, fused_lp, compare, lives, tag,
+                     hold_straight, W=20):
+    """K1 on clusters against its plain version from ``st``, for each
+    live count in ``lives``: the instances after the first ``live`` that
+    are not done in ``st`` are marked done, and C is the plan the card
+    gives that count (``split_plan``), as on the main path.  Held: each
+    of W iterations from the kernel's own state against one plain
+    iteration from that state (every state field within K1_TOL); a
+    repeat W-iteration launch gives the same bits; done instances come
+    back as they went in (E x as the one-block launch gives it); the
+    one W-iteration launch against the plain version, held where
+    ``hold_straight`` and logged otherwise (from a late state the
+    iteration amplifies a difference); and a planted fault, the rows of
+    E of one block's share zeroed (the block whose rows hold the most
+    entries of the live instances), which must cross K1_TOL after one
+    iteration.  Returns (live, C, factor rows resident) per case."""
+    import torch
+    B, m, n = prob.E.shape
+    nside = nfactor is not None
+    E_op = fused_lp.window_operand(prob.E, cfg)
+    route = fused_lp.e_route(E_op)
+    hw = fused_lp.card(prob.E.device)
+    plain = lambda s, w: fused_lp.lp_window_plain(s, prob, cfg, w,
+                                                  nfactor=nfactor)
+    cases = []
+    for live in lives:
+        idx = torch.nonzero(~st.done).flatten()
+        require(idx.numel() >= live, f"K1 {tag}: {live} live instances")
+        done = torch.ones_like(st.done)
+        done[idx[:live]] = False
+        s0 = st.replace(done=done)
+        C = fused_lp.split_plan(live, m, n, nside, route, hw.sms,
+                                hw.max_active)
+        require(C > 1, f"K1 {tag}: {live} live take a cluster (plan {C})")
+        res = fused_lp.factor_resident(m, n, route, C, nside)
+        name = f"cluster-{tag}-{live}live-C{C}{'-res' if res else ''}"
+        run = lambda s, w, E=E_op: k1_cluster(s, prob, cfg, w, C, nfactor,
+                                              fused_lp, E)
+        k = run(s0, W)
+        k1_same_bits(k, run(s0, W), False, f"K1 {name}: repeat launch")
+        one = k1_cluster(s0, prob, cfg, W, 1, nfactor, fused_lp, E_op)
+        frozen = {"x": s0.x, "y1": s0.x, "y2": s0.x, "y3": s0.f_eff,
+                  "z1": s0.z1, "z2": s0.z2, "z4": s0.z4,
+                  "best_sol": s0.best_sol, "obj_ring": s0.obj_ring,
+                  "obj_count": s0.obj_count, "cur_obj": s0.cur_obj,
+                  "best_bin_obj": s0.best_bin_obj, "ex": one.ex}
+        moved = [f for f, v in frozen.items()
+                 if not torch_equal(getattr(k, f)[done], v[done])]
+        require(not moved, f"K1 {name}: done instances changed {moved}")
+        worst, s_t = {}, s0
+        for t in range(W):
+            k_t = run(s_t, 1)
+            for f, e in compare(f"{name}-it{t}", k_t, plain(s_t, 1), cfg,
+                                quiet=True).items():
+                worst[f] = max(worst.get(f, 0.0), e[1])
+            s_t = k_t
+        if hold_straight:
+            straight = compare(f"{name}-{W}it", k, plain(s0, W), cfg)
+        else:
+            straight = k1_errors(k, plain(s0, W), cfg)
+        held = "held" if hold_straight else "not held"
+        log(f"  K1 {name} ({B}, {m}, {n}) {'n' if nside else 'm'} side, it "
+            f"{st.it}: {W} iterations each from the kernel's state, worst "
+            "in x units " + " ".join(f"{f}={e:.2e}" for f, e in
+                                     worst.items())
+            + f"; one {W}-iteration launch ({held}) "
+            + " ".join(f"{f}={e[1]:.2e}" for f, e in straight.items()))
+        share = fused_lp.share_rows(m, C)
+        mass = [float(E_op[idx[:live], r * share:(r + 1) * share]
+                      .abs().sum()) for r in range(C)]
+        r = max(range(C), key=mass.__getitem__)
+        bad = E_op.clone()
+        bad[:, r * share:(r + 1) * share] = 0
+        k1_planted(f"{name}: E's rows of block {r} zeroed",
+                   k1_cluster(s0, prob, cfg, 1, C, nfactor, fused_lp, bad),
+                   plain(s0, 1), cfg)
+        cases.append((live, C, res))
+    return cases
 
 
 def cuda_ms_cold(fn, reps, flush):
@@ -2904,7 +3062,8 @@ def run(workers):
     summary.update(plain_s=plain_s, plain_it=st.it, plain_done=n_done,
                    plain_mean_obj=plain_obj.mean().item())
 
-    with Phase("l2f-solve", 180) as ph:
+    with Phase("l2f-solve", 180) as ph, \
+            FirstCall(l2f, "solve_fused_from") as ca_tail_in:
         tm = {}
         _, out = l2f.l2f_solve_compact(
             prob, model, cfg, pcfg, ws=100,
@@ -2942,6 +3101,16 @@ def run(workers):
     with Phase("k1-done-check", 60) as ph:
         n_frozen = k1_done_check(st, prob, cfg, fused_lp, compare)
         log(f"  K1 done-instance exit: {n_frozen} frozen instances")
+        # K1 on clusters from the state the main path's tail handed K1
+        # (after compaction and the rho fast-forward), at the live counts
+        # of its later windows
+        ca_tail = k1_cluster_check(
+            *ca_tail_in.args[:3], ca_tail_in.kwargs.get("nfactor"),
+            fused_lp, compare, (55, 30, 15), "ca500-tail", False)
+        require({c for _, c, _ in ca_tail} == {2, 4, 8},
+                f"ca500 tail clusters of 2, 4 and 8: {ca_tail}")
+        k1_res["clusters at the ca500 tail"] = {"cases": ca_tail}
+        del ca_tail_in
     summary["k1_done_check_s"] = ph.seconds
 
     # --- the dense-LP options; solve_auto's K1 launches from 0 -------------
@@ -3135,7 +3304,11 @@ def run(workers):
         tail_k1 = None
         if xtm["tail_route"] == "k1":
             tail_k1 = (*tail_in.args[:3], tail_in.kwargs.get("nfactor"))
-            xl_tail_k1_check(*tail_k1, fused_lp, compare)
+            xl_cl = xl_tail_k1_check(*tail_k1, fused_lp, compare)
+            k1_res["clusters at the xl tail"] = {"cases": xl_cl}
+            require(tuple(xtm["k1_splits"][0][:2]) == xl_cl[0][:2],
+                    f"xl tail: the path's first K1 launch {xtm['k1_splits']}"
+                    f" took the plan checked here {xl_cl[0]}")
     summary["xl_l2f_check_s"] = ph.seconds
     del k2_in, tail_in
 
@@ -3177,6 +3350,16 @@ def run(workers):
         if tail_k1 is not None:
             summary["xl_tail_k1"] = xl_tail_k1_timing(*tail_k1, fused_lp)
             kernels[0]["routes_xl_tail"] = summary["xl_tail_k1"]["routes"]
+        from lpbox_admm_tpu_torch.core.problem import LpProblem
+        kernels[0]["clusters"] = summary["k1_split"] = k1_split_timing(
+            fused_lp, lp, woodbury, LpProblem, cfg)
+        # K1 on clusters against the plain version (k1_cluster_check)
+        cl = [v for k_, v in k1_res.items() if k_.startswith("cluster-")]
+        kernels[0]["cluster_checks"] = {
+            "max_abs_err": max(v["max_abs_err_x"] for v in cl),
+            "max_err_x_units": max(v["max_err_x_units"] for v in cl),
+            "cases": {k_: v["cases"] for k_, v in k1_res.items()
+                      if "cases" in v}}
         kernels[0]["launches_train"] = train_launches["K1"]
         kernels[1]["launches_train"] = train_launches["K2"]
         kernels[0]["launches_lp_options"] = auto_k1
@@ -3277,7 +3460,7 @@ def timings(prob, cfg, pcfg, packed, pop, rows, lp, fused_lp, fused_policy,
         + " TFLOP/s")
     return [
         {"name": "K1 lp_window", "route": "cuda",
-         "source": "lpbox_admm_tpu_torch/csrc/lp_window.cu",
+         "source": "lpbox_admm_tpu_torch/csrc/lp_window.cuh",
          "replaces": "lpbox_admm_tpu/ops/pallas_lp.py:78",
          "launches": launches["K1"],
          # largest absolute error of the O(1) fields over every check
@@ -3347,7 +3530,7 @@ def k1_work(a, out, cfg, it0, W):
                if t % cfg.incumbent_stride == 0])
     flops = B * 2.0 * (W * (5 * m * n + m * m) + inc * m * n)
     nbytes = sum(t.numel() * t.element_size() for t in (*a, *out)
-                 if t is not None)
+                 if hasattr(t, "numel"))
     return flops, nbytes
 
 
@@ -3361,6 +3544,72 @@ def k1_route_bytes(route, B, m, n, cfg, W):
         return B * (fac + m * n / W)
     es = {"f32-stream": 4, "bf16-stream": 2, "int8-stream": 1}[route]
     return B * ((3 + 1.0 / max(cfg.incumbent_stride, 1)) * m * n * es + fac)
+
+
+def random_01_lp(LpProblem, B, m, n, density, seed):
+    """B random 0/1 LPs of shape (m, n) on the card (K1's split rows)."""
+    import torch
+    g = torch.Generator("cuda").manual_seed(seed)
+    E = (torch.rand(B, m, n, device="cuda", generator=g) < density).float()
+    ones = lambda *s: torch.ones(s, dtype=torch.bool, device="cuda")
+    return LpProblem(b=-torch.rand(B, n, device="cuda", generator=g) * 100,
+                     E=E, f=torch.ones(B, m, device="cuda"),
+                     row_mask=ones(B, m), var_mask=ones(B, n))
+
+
+def k1_split_timing(fused_lp, lp, woodbury, LpProblem, cfg):
+    """K1 on clusters against one block an instance, at the l2f tails'
+    shapes on random 0/1 LPs (CUDA events over 3 launches after a
+    warm-up; a live instance runs the whole window):
+    * the ca500 tail: (128, 256, 256), n side, int8-resident, 100
+      iterations with 1 live instance (C = 8), 30 (C = 4; the factor's
+      rows resident at both) and 55 (C = 2, the factor streamed);
+    * the xl tail: (32, 1664, 2048), m side, int8-stream, 20 iterations
+      with all 32 live: C = 2 (the rule on an H100, which holds 30
+      clusters of 4 at one block an SM) and C = 4 (two waves).
+    Per row: ms, iterations per ms and the bytes of the matrices a live
+    instance's iteration reads (closed form, wherever they lie)."""
+    import torch
+    rows = []
+    hw = fused_lp.card(torch.device("cuda"))
+    for (B, m, n, nside, dens, W, cases) in (
+            (128, 256, 256, True, 0.02, 100,
+             [(1, 1), (1, 8), (30, 1), (30, 4), (55, 1), (55, 2)]),
+            (32, 1664, 2048, False, 0.004, 20, [(32, 1), (32, 2), (32, 4)])):
+        p = random_01_lp(LpProblem, B, m, n, dens, 19)
+        s0 = lp.init_state(p, cfg)
+        nf = None
+        if nside:
+            f = woodbury.factorize_nside(p.E, s0.free, lp._wb_ratio(cfg))
+            nf = (f.hinv, f.ete)
+        a = fused_lp.window_inputs(s0, p, cfg, nf)
+        route = fused_lp.e_route(a.E)
+        inc = 1.0 / cfg.incumbent_stride
+        mat_bytes = (m * n * (2 + inc) + 8.0 * n * n) if nside else \
+            (m * n * (3 + inc) + 4.0 * m * m)
+        for live, C in cases:
+            done = torch.arange(B, device="cuda") >= live
+            ac = a._replace(done=done.to(torch.int32), cluster=C)
+            run = lambda ac=ac: fused_lp.window_cuda(ac, cfg, 0, W, 0)
+            out = run()
+            require(int(out.done.sum()) == B - live,
+                    f"K1 split timing: {live} live run the whole window")
+            require(finite(out.x, out.z1, out.z4), "K1 split timing: finite")
+            ms = cuda_ms(run, 3)
+            plan = fused_lp.split_plan(live, m, n, nside, route, hw.sms,
+                                       hw.max_active)
+            rows.append({"shape": [B, m, n], "nside": nside, "route": route,
+                         "live": live, "cluster": C, "plan": plan,
+                         "fac_resident": fused_lp.factor_resident(
+                             m, n, route, C, nside), "iters": W, "ms": ms,
+                         "it_per_ms": W / ms,
+                         "matrix_bytes_per_it": live * mat_bytes})
+    log("  K1 on clusters (window_cuda, CUDA events): " + "; ".join(
+        f"{r['shape']} {'n' if r['nside'] else 'm'} side {r['live']} live "
+        f"C={r['cluster']}{' res' if r['fac_resident'] else ''} "
+        f"(plan {r['plan']}): {r['ms']:.3f} ms, {r['it_per_ms']:.3f} it/ms, "
+        f"{r['matrix_bytes_per_it']:.4g} B/it" for r in rows))
+    return rows
 
 
 def xl_tail_k1_timing(st, prob, cfg, nfactor, fused_lp, W=100):

@@ -159,8 +159,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = []
         fn.restype = ctypes.c_int
-    lib.lpbox_stream_sweep_smem.argtypes = [ctypes.c_int] * 3
-    lib.lpbox_stream_sweep_smem.restype = ctypes.c_int
+    for name in ("lpbox_stream_sweep_smem", "lpbox_lp_window_max_clusters"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
     lib.lpbox_error_string.argtypes = [ctypes.c_int]
     lib.lpbox_error_string.restype = ctypes.c_char_p
     return lib

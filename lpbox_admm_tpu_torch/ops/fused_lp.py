@@ -1,5 +1,6 @@
-"""K1: the fused LP ADMM window (``csrc/lp_window.cu``) and its plain
-PyTorch version.
+"""K1: the fused LP ADMM window (``csrc/lp_window.cuh``, launched from
+``lp_window.cu`` and ``lp_window_cluster.cu``) and its plain PyTorch
+version.
 
 Port of the JAX package's ``ops/pallas_lp.py``.  ``lp_window_fused``
 runs ``window`` Woodbury-mode iterations of the whole batch in one
@@ -26,6 +27,20 @@ not change.  A solve makes the operand once, where it owns E
 (``solve_fused_from``, the l2f phases), and hands it to every window
 (``E_op``).  ``LAUNCHES`` counts the launches per route.
 
+Where few instances are live, a launch on a one-byte route spreads
+each instance over a thread-block cluster of C blocks (``CLUSTERS``),
+which split the matrix rows between them (csrc/lp_window.cuh).
+``solve_fused_from`` reads the live count at each window (the one host
+read it makes there) and ``split_plan`` decides C from it, the shape
+and the card alone: the largest C with live * C blocks on the card's
+SMs, every cluster resident at once and at least ``MIN_SHARE_ROWS``
+rows a block.  A launch without
+a count (a recorded window, ``window_cuda`` called directly) runs C = 1,
+one block an instance, and gives the bits it always has; C > 1 adds the
+transpose products' partials in another order.  The active tracer notes
+each launch's live count, C and share of the card's SMs
+(``k1.split``).
+
 The TPU kernel's instance blocking (``bt``/``auto_bt``), its rank-3
 vector layout, VMEM chunking and unrolling are TPU concerns and are not
 carried over; the policy phase records a whole window in one launch
@@ -35,8 +50,9 @@ where the TPU split it in two halves for VMEM (same trajectory).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -49,15 +65,22 @@ from .fused_stream import _SMEM_MAX, stream_operand
 
 _EPS = 2.2204e-16
 #: the kernel's threads per block and warps (``NT``, ``NW`` in
-#: csrc/lp_window.cu)
+#: csrc/lp_window.cuh)
 _NT = 512
 _NW = _NT // 32
 
 #: E's routes into the kernel, in the order of ``ERoute`` in
-#: csrc/lp_window.cu
+#: csrc/lp_window.cuh
 E_ROUTES = ("f32-stream", "bf16-stream", "int8-stream", "int8-resident")
 #: kernel launches made by ``lp_window_fused`` in this process, per E route
 LAUNCHES: Dict[str, int] = dict.fromkeys(E_ROUTES, 0)
+#: blocks an instance may take (thread-block cluster sizes)
+CLUSTERS = (1, 2, 4, 8)
+#: the E routes with a cluster kernel (every CA instance takes one; the
+#: others run one block an instance)
+CLUSTER_ROUTES = ("int8-stream", "int8-resident")
+#: rows of each split matrix that a block of a cluster keeps at least
+MIN_SHARE_ROWS = 32
 
 
 class WindowIn(NamedTuple):
@@ -79,6 +102,7 @@ class WindowIn(NamedTuple):
     cur_obj: torch.Tensor
     best_obj: torch.Tensor
     best_sol: torch.Tensor
+    cluster: int = 1         # blocks an instance (``split_plan``)
 
 
 class WindowOut(NamedTuple):
@@ -161,6 +185,106 @@ def e_route(E_op: torch.Tensor) -> str:
     if E_op.dtype == torch.float32:
         return "f32-stream"
     raise TypeError(f"E must be float32, bfloat16 or int8, got {E_op.dtype}")
+
+
+def share_rows(rows: int, cluster: int) -> int:
+    """Rows of a split matrix that one block of a ``cluster``-block
+    cluster takes (a multiple of 4; the last block's share may be
+    shorter)."""
+    return -(-rows // (4 * cluster)) * 4
+
+
+def window_bytes(m: int, n: int, route: str, cluster: int = 1,
+                 fac_resident: bool = False, nside: bool = False) -> int:
+    """Shared memory of a K1 block (``smem_need`` in csrc/lp_window.cu):
+    the carve-up of ``smem_bytes``; in a cluster, the cluster sum's slot
+    and the block sums' buffers (4 + 7 * 16 floats), E^T u's exchange (m
+    side: two n-vectors) and, with ``fac_resident``, the block's rows of
+    the factor (m side: G^{-1}; n side: H^{-1} and E_f^T E_f); on the
+    ``int8-resident`` route the block's rows of the one-byte E (rounded
+    up to 16 bytes).  At ``cluster=1`` it is ``smem_bytes``, or
+    ``resident_bytes`` on the resident route."""
+    floats = smem_bytes(m, n) // 4
+    if cluster > 1:
+        floats += 4 + 7 * _NW + (0 if nside else 2 * n)
+        if fac_resident:
+            floats += 2 * share_rows(n, cluster) * n if nside \
+                else share_rows(m, cluster) * m
+    e_rows = share_rows(m, cluster)
+    return 4 * floats + ((e_rows * n + 15) // 16 * 16
+                         if route == "int8-resident" else 0)
+
+
+def factor_resident(m: int, n: int, route: str, cluster: int,
+                    nside: bool) -> bool:
+    """Whether a cluster's block holds its rows of the factor in shared
+    memory (they fit beside the rest), or streams them."""
+    return cluster > 1 and \
+        window_bytes(m, n, route, cluster, True, nside) <= _SMEM_MAX
+
+
+def split_plan(live: Optional[int], m: int, n: int, nside: bool,
+               route: str, sms: int,
+               max_active: Callable[[str, int, int], int]) -> int:
+    """C, the blocks an instance of a K1 launch at (m, n) with ``live``
+    live instances takes: the largest of ``CLUSTERS`` whose ``live * C``
+    blocks fit the card's ``sms`` SMs, whose ``live`` clusters the card
+    holds at once (``max_active(route, shared_bytes, C)``, so that the
+    launch runs in one wave) and whose blocks keep at least
+    ``MIN_SHARE_ROWS`` rows of each split matrix (E's m rows; on the n
+    side also the factors' n rows).  No count (None), none live or a
+    route without a cluster kernel (``CLUSTER_ROUTES``): 1, the
+    one-block launch."""
+    if not live or route not in CLUSTER_ROUTES:
+        return 1
+    rows = min(m, n) if nside else m
+    for c in sorted(CLUSTERS[1:], reverse=True):
+        if live * c > sms or rows < MIN_SHARE_ROWS * c:
+            continue
+        need = window_bytes(m, n, route, c,
+                            factor_resident(m, n, route, c, nside), nside)
+        if need <= _SMEM_MAX and live <= max_active(route, need, c):
+            return c
+    return 1
+
+
+class Card(NamedTuple):
+    """What ``split_plan`` asks of the card: its SM count and how many
+    clusters of a K1 launch it holds at once (the cluster kernel takes
+    more than half an SM's shared memory a block, so no two of its
+    blocks share an SM)."""
+    sms: int
+    max_active: Callable[[str, int, int], int]
+
+
+@functools.lru_cache(maxsize=None)
+def max_clusters(idx: int, route: str, smem: int, c: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the route's cluster kernel
+    on CUDA device ``idx`` at ``smem`` bytes a block and C = ``c``."""
+    from ..kernels import build
+    lib = build.library()
+    with torch.cuda.device(idx):
+        got = lib.lpbox_lp_window_max_clusters(E_ROUTES.index(route), smem,
+                                               c)
+    if got < 0:
+        build.check(lib, -got, "lp_window cluster occupancy")
+    return got
+
+
+def card(device: torch.device) -> Optional[Card]:
+    """The CUDA card of ``device`` (None for any other device)."""
+    if device.type != "cuda":
+        return None
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return Card(torch.cuda.get_device_properties(idx).multi_processor_count,
+                functools.partial(max_clusters, idx))
+
+
+def sm_pct(live: int, cluster: int, sms: int) -> float:
+    """The share of the card's ``sms`` SMs that a launch of ``live``
+    instances on ``cluster`` blocks each takes, in %."""
+    return 100.0 * min(sms, live * cluster) / sms
 
 
 def check_fits(m: int, n: int) -> None:
@@ -308,7 +432,7 @@ def window_plain(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
 
 
 class _Args(ctypes.Structure):
-    """ctypes mirror of ``LpWindowArgs`` in csrc/lp_window.cu."""
+    """ctypes mirror of ``LpWindowArgs`` in csrc/lp_window.cuh."""
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "E", "fac", "ete", "b", "rmask", "x_in", "z1_in", "z2_in", "z4_in",
         "feff", "free_in", "ring_in", "count_in", "done_in", "curobj_in",
@@ -318,7 +442,8 @@ class _Args(ctypes.Structure):
         (name, ctypes.c_int) for name in (
             "B", "m", "n", "H", "window", "it0", "skip_cvg_at", "record",
             "nside", "e_route", "rho_change_step", "incumbent_stride",
-            "feasible_incumbent", "smem_bytes")] + [
+            "feasible_incumbent", "smem_bytes", "cluster",
+            "fac_resident")] + [
         (name, ctypes.c_float) for name in (
             "initial_rho", "log_learning_fact", "gamma0",
             "log_gamma_factor", "stop_threshold", "std_threshold",
@@ -328,7 +453,9 @@ class _Args(ctypes.Structure):
 def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
                 skip_cvg_at: Optional[int] = None,
                 record: bool = False) -> WindowOut:
-    """Launch the CUDA kernel on PyTorch's current stream."""
+    """Launch the CUDA kernel on PyTorch's current stream, each instance
+    on ``a.cluster`` blocks (``split_plan``; a recorded window on one),
+    their factor rows in shared memory where ``factor_resident``."""
     from ..kernels import build
 
     B, m, n = a.E.shape
@@ -338,6 +465,19 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
     if n % 4 or m % 4:
         raise ValueError(f"fused window needs m, n multiples of 4: {(m, n)}")
     check_fits(m, n)
+    if a.cluster not in CLUSTERS:
+        raise ValueError(f"cluster {a.cluster}: one of {CLUSTERS}")
+    if a.cluster > 1 and route not in CLUSTER_ROUTES:
+        raise ValueError(f"{route}: no cluster kernel (one of "
+                         f"{CLUSTER_ROUTES})")
+    if a.cluster > 1 and record:
+        raise ValueError("a recorded window runs one block an instance")
+    res = factor_resident(m, n, route, a.cluster, nside)
+    smem = window_bytes(m, n, route, a.cluster, res, nside)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"cluster {a.cluster} at (m, n) = ({m}, {n}) needs "
+                         f"{smem} bytes of shared memory per thread block; "
+                         f"the limit is {_SMEM_MAX} bytes")
     H = cfg.history_size
     fac_shape = (B, n, n) if nside else (B, m, m)
     want = dict(fac=fac_shape, ete=(B, n, n) if nside else None,
@@ -381,8 +521,7 @@ def window_cuda(a: WindowIn, cfg: SolverConfig, it0: int, window: int,
         B, m, n, H, window, it0, -1 if skip_cvg_at is None else skip_cvg_at,
         int(record), int(nside), E_ROUTES.index(route),
         cfg.rho_change_step, cfg.incumbent_stride,
-        int(cfg.feasible_incumbent),
-        resident_bytes(m, n) if route == "int8-resident" else smem_bytes(m, n),
+        int(cfg.feasible_incumbent), smem, a.cluster, int(res),
         cfg.initial_rho, math.log(cfg.learning_fact), cfg.gamma0,
         math.log(cfg.gamma_factor), cfg.stop_threshold, cfg.std_threshold,
         cfg.pcg_tol * cfg.pcg_tol)
@@ -432,19 +571,35 @@ def window_state(state: lp_core.LpState, prob: LpProblem, cfg: SolverConfig,
 def lp_window_fused(state: lp_core.LpState, prob: LpProblem,
                     cfg: SolverConfig, window: int,
                     skip_cvg_at: Optional[int] = None, record: bool = False,
-                    nfactor=None, E_op: Optional[torch.Tensor] = None):
+                    nfactor=None, E_op: Optional[torch.Tensor] = None,
+                    live: Optional[int] = None):
     """Run ``window`` Woodbury-mode ADMM iterations in one kernel launch.
 
     ``record=True`` also returns the (B, n, window) trajectory.
     ``nfactor``: ``(hinv, ete)`` from ``woodbury.factorize_nside`` for
     the direct n-side x-update (``state.ginv`` is then unused).
     ``E_op``: ``window_operand(prob.E, cfg)``, made by the caller once
-    per solve (else here).  A CUDA problem launches the kernel on the
-    route of that operand (``e_route``); a CPU problem runs
-    ``window_plain``."""
+    per solve (else here).  ``live``: the instances not done, as the
+    caller has read them; an unrecorded launch with a count spreads each
+    instance over the cluster ``split_plan`` gives on this card, one
+    without runs one block an instance.  A CUDA problem launches the
+    kernel on the route of that operand (``e_route``); a CPU problem runs
+    ``window_plain``.  The active tracer notes (live, C, the share of
+    the card's SMs in %, ``sm_pct``; None off a card) under ``k1.split``
+    (live: the batch where no count was given)."""
     if prob.E.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no fused window for device {prob.E.device}")
     a = window_inputs(state, prob, cfg, nfactor, E_op)
+    hw = card(prob.E.device)
+    if hw is not None and not record and live is not None:
+        _, m, n = a.E.shape
+        a = a._replace(cluster=split_plan(live, m, n, a.ete is not None,
+                                          e_route(a.E), hw.sms,
+                                          hw.max_active))
+    if live is None:
+        live = state.x.shape[0]
+    profiling.note("k1.split", (live, a.cluster, None if hw is None
+                                else sm_pct(live, a.cluster, hw.sms)))
     if prob.E.is_cuda:
         out = window_cuda(a, cfg, state.it, window, skip_cvg_at, record)
         LAUNCHES[e_route(a.E)] += 1
@@ -474,18 +629,21 @@ def solve_fused_from(state: lp_core.LpState, prob: LpProblem,
                      E_op: Optional[torch.Tensor] = None
                      ) -> lp_core.LpState:
     """Continue a solve with fused windows until every instance is done
-    or ``max_iters`` is reached (one host check per window, the read
-    ``fused_lp.done``).  E's kernel operand is ``E_op`` or made here,
-    once for all the windows."""
+    or ``max_iters`` is reached: one host read per window (``fused_lp.
+    done``), the live count, which also sets the window's clusters
+    (``split_plan``).  E's kernel operand is ``E_op`` or made here, once
+    for all the windows."""
     if max_iters is None:
         max_iters = cfg.max_iters
     if E_op is None:
         E_op = window_operand(prob.E, cfg)
-    while state.it < max_iters and \
-            not profiling.read("fused_lp.done", bool, state.done.all()):
+    while state.it < max_iters:
+        live = profiling.read("fused_lp.done", int, (~state.done).sum())
+        if not live:
+            break
         state = lp_window_fused(state, prob, cfg, window,
                                 skip_cvg_at=skip_cvg_at, nfactor=nfactor,
-                                E_op=E_op)
+                                E_op=E_op, live=live)
     return state
 
 

@@ -331,8 +331,13 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
     route, ``policy_route`` and ``tail_route``, ``"k1"`` or
     ``"windows"``, and on the K1 route E's route into K1,
     ``policy_e_route`` and ``tail_e_route`` (``ops.fused_lp.E_ROUTES``;
-    None on the windows route).  Without it the solve creates no event
-    and makes only the host reads it needs.  Returns ``(final_state,
+    None on the windows route), and K1's clusters: per launch (live, C,
+    the share of the card's SMs that live * C blocks take, in %; None
+    off a card) in ``k1_splits`` (``ops.fused_lp.split_plan``,
+    ``sm_pct``), the launches with C > 1 in ``k1_split_launches`` and,
+    on a card, the mean share over the launches, ``k1_sm_pct``.  Without
+    it the solve creates no event and makes only the host reads it
+    needs.  Returns ``(final_state,
     out)`` with the full-width binary solution, objective, iterations,
     infeasible rows and fixing information."""
     if max_iter is None:
@@ -379,6 +384,12 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
         timings["tail_route"] = tail_route
         timings["policy_e_route"] = policy_e_route
         timings["tail_e_route"] = tail_e_route
+        splits = timings.setdefault("k1_splits", [])
+        splits += tracer.notes.get("k1.split", [])
+        timings["k1_split_launches"] = sum(c > 1 for _, c, _ in splits)
+        pcts = [p for _, _, p in splits if p is not None]
+        if pcts:
+            timings["k1_sm_pct"] = sum(pcts) / len(pcts)
     return state, {
         "solution": sol_full,
         "obj": obj,

@@ -10,10 +10,11 @@ span's time is the host clock.  While ``torch.profiler`` records, each
 span is also a ``record_function`` range under its own name, on the
 clock of the device trace.
 
-The program's instrumented sites call the module functions ``span``
-and ``read``.  They act only while a timer is active (``with timer:``);
-with none active a span is one shared no-op context and a read is the
-plain read it stands for, at the cost of one ``None`` check:
+The program's instrumented sites call the module functions ``span``,
+``read`` and ``note``.  They act only while a timer is active (``with
+timer:``); with none active a span is one shared no-op context, a read
+is the plain read it stands for and a note nothing, at the cost of one
+``None`` check:
 
     t = PhaseTimer(device)
     with t:                      # the solve's spans, counters and reads
@@ -87,6 +88,14 @@ def read(site: str, fn: Callable[..., T], *args) -> T:
     return t.read(site, fn, *args)
 
 
+def note(name: str, value) -> None:
+    """Append ``value`` to the active timer's list ``notes[name]`` (a
+    host value the site already holds: no read)."""
+    t = _ACTIVE.get()
+    if t is not None:
+        t.notes.setdefault(name, []).append(value)
+
+
 def _range(name: str):
     """A ``record_function`` range while the profiler records, else
     None."""
@@ -145,7 +154,8 @@ class PhaseTimer:
     clock).  ``totals`` and ``counts``: seconds and spans per name over
     every resolved span; ``counters``: counts by name, host reads under
     ``"host.read:<site>"``; ``read_wait``: seconds the host spent in its
-    counted reads; ``spans``: every span, kept in memory."""
+    counted reads; ``notes``: values by name (``note``); ``spans``:
+    every span, kept in memory."""
 
     def __init__(self, device=None):
         dev = None if device is None else torch.device(device)
@@ -155,6 +165,7 @@ class PhaseTimer:
         self.counts: Dict[str, int] = {}
         self.counters: Dict[str, int] = {}
         self.read_wait = 0.0
+        self.notes: Dict[str, list] = {}
         self.spans: List[Span] = []
         self.solve = 0
         self._stack: List[Span] = []

@@ -1,7 +1,11 @@
 """K1 to K4 and P1 to P3 against their plain versions on a CUDA device
 (K2 also at row counts off both of its kernels' blocks),
-K1's one-byte E routes against its f32 route bit for bit, K1's refusal
-of the xl shape and one l2f policy window at that shape.
+K1's one-byte E routes against its f32 route bit for bit, K1 on
+clusters of 2, 4 and 8 blocks an instance at the l2f tails' shapes (its
+transpose products add the blocks' partials in another order, so it is
+held to the plain version's limits, and to its own bits from a repeat
+launch), K1's refusal of the xl shape and one l2f policy window at that
+shape.
 
 Marked ``cuda``: skipped where there is no card (``torch.cuda`` is
 asked inside the fixture, never at import).  On the card:
@@ -171,6 +175,115 @@ def test_k1_one_byte_routes_match_f32(prob, prob500, shape, route,
         pl = fused_lp.lp_window_plain(s0, p, cfg, 20, **kw)
         pl = pl[0] if kw.get("record") else pl
         assert (k.x - pl.x).abs().max().item() <= 1e-3
+
+
+#: K1 on clusters at the l2f tails' shapes: (B, m, n, n side, 0/1
+#: density); every other instance done
+SPLITS = {"ca500-tail": (4, 256, 256, True, 0.02),
+          "xl-tail": (2, 1664, 2048, False, 0.004)}
+#: (shape, C): the factor's rows resident where they fit beside the
+#: carve-up (the ca500 tail from C = 4), else streamed
+SPLIT_CASES = [("ca500-tail", 2), ("ca500-tail", 4), ("ca500-tail", 8),
+               ("xl-tail", 2), ("xl-tail", 4), ("xl-tail", 8)]
+K1_STATE = ("x", "z1", "z2", "z4", "y1", "y2", "y3", "ex", "obj_ring",
+            "obj_count", "done", "cur_obj", "best_bin_obj", "best_sol")
+
+
+@pytest.fixture(scope="module")
+def split_starts(cuda):
+    out = {}
+    for name, (B, m, n, nside, dens) in SPLITS.items():
+        p = random_lp(cuda, B, m, n, dens, B)
+        cfg = CFG.replace(incumbent_stride=8)
+        s0 = lp.init_state(p, cfg)
+        s0 = s0.replace(done=torch.arange(B, device=cuda) % 2 == 1)
+        nf = None
+        if nside:
+            f = woodbury.factorize_nside(p.E, s0.free, 2.0)
+            nf = (f.hinv, f.ete)
+        out[name] = (p, cfg, s0, nf)
+    return out
+
+
+def _k1_run(a, s0, p, cfg, W=20):
+    out = fused_lp.window_cuda(a, cfg, s0.it, W, 0)
+    return fused_lp.window_state(s0, p, cfg, W, out, False)
+
+
+@pytest.mark.parametrize("shape,C", SPLIT_CASES,
+                         ids=[f"{s}-C{c}" for s, c in SPLIT_CASES])
+def test_k1_cluster_matches_plain(split_starts, shape, C):
+    """One instance on a cluster of C blocks, 20 iterations: within
+    K1's limits of the plain version (the transpose products add the
+    blocks' partials in another order), the same bits from a repeat
+    launch, done instances' state returned as it came (their E x as the
+    one-block launch gives it), and the one-block launch of the same
+    operands still the f32-stream route's bits."""
+    p, cfg, s0, nf = split_starts[shape]
+    a = fused_lp.window_inputs(s0, p, cfg, nf)
+    B, m, n = a.E.shape
+    route = fused_lp.e_route(a.E)
+    assert route == ("int8-resident" if shape == "ca500-tail"
+                     else "int8-stream")
+    assert fused_lp.factor_resident(m, n, route, C, nf is not None) == \
+        (shape == "ca500-tail" and C > 2)
+    ac = a._replace(cluster=C)
+    k = _k1_run(ac, s0, p, cfg)
+    again = _k1_run(ac, s0, p, cfg)
+    one = _k1_run(a, s0, p, cfg)
+    f32 = _k1_run(a._replace(E=p.E), s0, p, cfg)
+    for name in K1_STATE:
+        assert torch.equal(getattr(k, name), getattr(again, name)), name
+        assert torch.equal(getattr(one, name), getattr(f32, name)), name
+    pl = fused_lp.lp_window_plain(s0, p, cfg, 20, skip_cvg_at=0, nfactor=nf)
+    for f in ("x", "y1", "y2", "y3", "ex", "best_sol"):
+        assert (getattr(k, f) - getattr(pl, f)).abs().max().item() <= 1e-3, f
+    dual_unit = gamma_at(pl.it - 1, cfg) * rho_at(pl.it - 1, cfg)
+    for f in ("z1", "z2", "z4"):
+        d = (getattr(k, f) - getattr(pl, f)).abs().max().item()
+        assert d / dual_unit <= 1e-3, f
+    for f in ("cur_obj", "best_bin_obj", "obj_ring"):
+        ref = getattr(pl, f)
+        d = (getattr(k, f) - ref).abs() / ref.abs().clamp_min(1.0)
+        assert d.max().item() <= 1e-3, f
+    assert torch.equal(k.done, pl.done)
+    assert torch.equal(k.obj_count, pl.obj_count)
+    d = s0.done
+    frozen = {"x": s0.x, "y1": s0.x, "y2": s0.x, "y3": s0.f_eff,
+              "z1": s0.z1, "z2": s0.z2, "z4": s0.z4, "best_sol": s0.best_sol,
+              "obj_ring": s0.obj_ring, "obj_count": s0.obj_count,
+              "cur_obj": s0.cur_obj, "best_bin_obj": s0.best_bin_obj,
+              "ex": one.ex}
+    for f, v in frozen.items():
+        assert torch.equal(getattr(k, f)[d], v[d]), f
+
+
+def test_k1_split_plan_on_the_card(split_starts, cuda):
+    """The card's answers to the rule (its SM count, the clusters it
+    holds at once) at the cells' shapes, and a counted launch through
+    ``lp_window_fused`` taking the plan."""
+    from lpbox_admm_tpu_torch.utils import profiling
+    hw = fused_lp.card(cuda)
+    assert hw.sms == torch.cuda.get_device_properties(cuda) \
+        .multi_processor_count
+    plan = lambda live, m, n, nside, route: fused_lp.split_plan(
+        live, m, n, nside, route, hw.sms, hw.max_active)
+    assert plan(128, 256, 512, False, "int8-resident") == 1
+    assert plan(1, 256, 256, True, "int8-resident") == 8
+    assert plan(32, 1664, 2048, False, "int8-stream") >= 2
+    assert plan(None, 256, 256, True, "int8-resident") == 1
+    p, cfg, s0, nf = split_starts["ca500-tail"]
+    live = int((~s0.done).sum())
+    t = profiling.PhaseTimer(cuda)
+    before = dict(fused_lp.LAUNCHES)
+    with t:
+        fused_lp.lp_window_fused(s0, p, cfg, 20, skip_cvg_at=0, nfactor=nf,
+                                 live=live)
+    assert fused_lp.LAUNCHES["int8-resident"] == \
+        before["int8-resident"] + 1
+    C = plan(live, 256, 256, True, "int8-resident")
+    assert t.notes["k1.split"] == [(live, C, fused_lp.sm_pct(live, C,
+                                                             hw.sms))]
 
 
 K2_NETS = [("mha", 20), ("mlp", 20), ("mha", 10), ("mlp", 10),

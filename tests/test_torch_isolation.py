@@ -300,8 +300,8 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build()
     assert [p.name for p in build.sources()] == [
-        "lp_window.cu", "policy.cu", "probe_dot.cu", "stream_sweep.cu",
-        "symm.cu"]
+        "lp_window.cu", "lp_window_cluster.cu", "policy.cu", "probe_dot.cu",
+        "stream_sweep.cu", "symm.cu"]
 
 
 def _run_smoke(cwd):

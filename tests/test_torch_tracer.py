@@ -33,6 +33,8 @@ NEW_KEYS = {"compact_s", "lp_window_s", "factor_s", "select_s",
             "host_reads", "host_read_wait_s", "host_read_sites"}
 OLD_KEYS = {"policy_s", "tail_s", "buckets", "nside", "policy_route",
             "tail_route", "policy_e_route", "tail_e_route"}
+#: K1's clusters (``k1_sm_pct`` only where there is a card)
+SPLIT_KEYS = {"k1_splits", "k1_split_launches"}
 
 
 def test_spans_nest_with_parents_solves_and_totals():
@@ -102,7 +104,7 @@ def traced():
 
 def test_l2f_timings_hold_the_new_keys(traced):
     tm, _ = traced
-    assert set(tm) == OLD_KEYS | NEW_KEYS
+    assert set(tm) == OLD_KEYS | NEW_KEYS | SPLIT_KEYS
     assert tm["tail_route"] == "k1"
     assert tm["compact_s"] > 0 and tm["select_s"] > 0
     assert tm["compact_s"] + tm["select_s"] <= tm["tail_s"]
