@@ -7,7 +7,8 @@ For each seed, in one process: a run of the cell with a short window
 (at least the captured batch), the compared numbers of the program, and
 the same numbers with the reference in TF32 put in the program's place
 (the control, which must fail the limits).  With ``--fault NAME`` the
-program runs with that fault planted (``faults.py``), and no control.  One JSON line a
+program runs with that fault planted (``faults.py``; the cell's kind
+says which apply), and no control.  One JSON line a
 seed on standard output (or in ``--out``).  The benchmark's own runs do
 not run the control.
 """
@@ -20,8 +21,8 @@ import os
 import sys
 
 from . import run as R
-from .faults import FAULTS, plant
-from .manifest import Cell
+from .faults import NAMES, plant
+from .manifest import Cell, kind
 
 
 def readings(cell, seeds, seconds: float, device: str = "cuda",
@@ -33,7 +34,7 @@ def readings(cell, seeds, seconds: float, device: str = "cuda",
     port = None
     if fault:
         port = R.load_port(device)
-        plant(fault, port)
+        plant(fault, port, kind(cell.config["instance"]["kind"]))
     rows = []
     for k, seed in enumerate(seeds):
         r = R.Run(cell, seed, seconds, False, device=device,
@@ -59,7 +60,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--out")
-    ap.add_argument("--fault", choices=sorted(FAULTS),
+    ap.add_argument("--fault", choices=sorted(NAMES),
                     help="plant this fault under the timed path first")
     args = ap.parse_args(argv)
     import torch

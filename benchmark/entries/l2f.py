@@ -9,8 +9,8 @@ def build(port, setting):
     args = dict(setting["args"])
 
     def solve(prob, traced):
-        # the phase timings synchronise the device, so only a traced run
-        # asks for them
+        # the program's tracer (spans timed by CUDA events, one wait at
+        # the solve's end) runs in traced runs only
         tm = {} if traced else None
         _, out = l2f.l2f_solve_compact(prob, model, cfg, pcfg, timings=tm,
                                        **args)

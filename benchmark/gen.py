@@ -10,11 +10,12 @@ are the benchmark's own:
   ``(seed, index)``, so that worker processes can make a pool in
   parallel and the same seed gives the same pool in any order;
 * the sampler returns the incidence as a COO pair (rows, columns), the
-  form a worker sends back cheaply; the pool is laid out densely on the
-  device by the harness.
+  form a worker sends back cheaply; the auction kind lays the pool out
+  densely on the device.
 
-This module imports numpy alone: the harness's pool workers import it
-and nothing of the program.
+The auction kind (``kinds/cauction.py``) makes its pool with
+``instance``.  This module imports numpy alone: the harness's pool
+workers import it and nothing of the program.
 """
 
 from __future__ import annotations
@@ -161,18 +162,3 @@ def instance(seed: int, index: int, n_items: int, n_bids: int):
         return_coo=True)
     return (prices, rows.astype(np.int32), cols.astype(np.int32),
             tuple(int(d) for d in shape))
-
-
-#: the instance kinds a configuration may name (``instance.kind``): each
-#: makes pool instance ``index`` under ``seed`` from the configuration's
-#: other instance parameters, as ``instance`` does, in the same form
-KINDS = {"cauction": instance}
-
-
-def maker(kind: str):
-    """The generator of instance kind ``kind``; an unknown kind is
-    refused, never given another kind's instances."""
-    if kind not in KINDS:
-        raise ValueError(f"no generator for instance kind {kind!r}; "
-                         f"there are {sorted(KINDS)}")
-    return KINDS[kind]

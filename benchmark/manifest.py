@@ -1,13 +1,17 @@
 """The benchmark's files, found by name: ``BENCHMARK.json`` at the root
 of the checkout lists the cells and metrics; a cell's configuration,
-traffic mix and limits, and each per-layer metric's reader, are files
-of their own under this folder."""
+traffic mix and limits, each entry point, each problem family's kind
+module and each metric's reader are files of their own under this
+folder, so that a cell, a metric or a problem family comes as new
+files."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import os
+import re
 from typing import Callable, Dict
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -67,6 +71,23 @@ def entry(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.build
+
+
+def kinds() -> list:
+    """The kinds there are: the modules of ``kinds/``."""
+    return sorted(f[:-3] for f in os.listdir(os.path.join(HERE, "kinds"))
+                  if f.endswith(".py") and not f.startswith("_"))
+
+
+def kind(name: str):
+    """The kind module ``kinds/<name>.py`` (``kinds/__init__.py`` says
+    what it owns), imported by name so that spawn workers can run its
+    ``make``; an unknown kind is refused, never given another kind's
+    instances."""
+    if not re.fullmatch(r"[A-Za-z0-9_]+", name) or name not in kinds():
+        raise ValueError(f"no kind {name!r} in {os.path.join(HERE, 'kinds')}"
+                         f"; there are {kinds()}")
+    return importlib.import_module(f"{__package__}.kinds.{name}")
 
 
 def overlay(base: Dict, over: Dict) -> Dict:

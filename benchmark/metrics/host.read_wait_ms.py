@@ -1,7 +1,8 @@
 """Mean milliseconds the host spends in its counted device-to-host
-reads per batch: the ``host_read_wait_s`` of the ``timings`` that
-``train.l2f.l2f_solve_compact`` fills in traced runs.  Nothing where the
-program has no such key."""
+reads per batch: the ``host_read_wait_s`` of the ``timings`` that the
+entry fills in traced runs (``train.l2f.l2f_solve_compact``'s, or the
+plain solve's under the program's tracer).  Nothing where the program
+has no such key."""
 
 
 def read(run):

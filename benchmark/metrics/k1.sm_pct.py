@@ -1,6 +1,7 @@
 """Mean per batch of the share of the card's SMs that K1's launches take:
-the ``k1_sm_pct`` of the ``timings`` that ``train.l2f.l2f_solve_compact``
-fills in traced runs (over a batch's launches, min(SMs, live * C) / SMs,
+the ``k1_sm_pct`` of the ``timings`` that the entry fills in traced runs
+(``train.l2f.l2f_solve_compact``'s, or the plain solve's under the
+program's tracer; over a batch's launches, min(SMs, live * C) / SMs,
 C the blocks an instance).  Nothing where the program has no such key."""
 
 

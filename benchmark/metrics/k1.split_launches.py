@@ -1,8 +1,9 @@
 """Mean K1 launches per batch that spread each instance over a cluster of
 more than one block: the ``k1_split_launches`` of the ``timings`` that
-``train.l2f.l2f_solve_compact`` fills in traced runs (each launch's
-(live, C, share of the SMs) under ``k1_splits``).  Nothing where the
-program has no such key."""
+the entry fills in traced runs (``train.l2f.l2f_solve_compact``'s, or
+the plain solve's under the program's tracer; each launch's (live, C,
+share of the SMs) under ``k1_splits``).  Nothing where the program has
+no such key."""
 
 
 def read(run):

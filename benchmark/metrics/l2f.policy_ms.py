@@ -1,6 +1,7 @@
 """Mean milliseconds of the l2f policy phase per batch: the ``policy_s``
-of the ``timings`` that ``train.l2f.l2f_solve_compact`` fills (its
-span ends with a synchronise, so traced runs only ask for it)."""
+of the ``timings`` that ``train.l2f.l2f_solve_compact`` fills in traced
+runs (the program's span ``l2f.policy``, timed by CUDA events on the
+device's clock, with no synchronise of its own)."""
 
 
 def read(run):

@@ -1,7 +1,8 @@
 """Mean milliseconds of selection and repair per batch: the
-``select_s`` of the ``timings`` that ``train.l2f.l2f_solve_compact``
-fills in traced runs (the program's span ``lp.select`` around
-``core.lp.select_solution``).  Nothing where the program has no such
+``select_s`` of the ``timings`` that the entry fills in traced runs
+(``train.l2f.l2f_solve_compact``'s, or the plain solve's under the
+program's tracer): the program's span ``lp.select`` around
+``core.lp.select_solution``.  Nothing where the program has no such
 key."""
 
 

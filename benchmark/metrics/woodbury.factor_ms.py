@@ -1,9 +1,10 @@
 """Mean milliseconds of the Woodbury inverses per batch: the
-``factor_s`` of the ``timings`` that ``train.l2f.l2f_solve_compact``
-fills in traced runs (the program's span ``woodbury.factor`` around each
-Cholesky inverse of ``ops/woodbury.py``: the first factor, one after
-each fix, the compacted and the n-side factor).  Nothing where the
-program has no such key."""
+``factor_s`` of the ``timings`` that the entry fills in traced runs
+(``train.l2f.l2f_solve_compact``'s, or the plain solve's under the
+program's tracer): the program's span ``woodbury.factor`` around each
+Cholesky inverse of ``ops/woodbury.py`` (l2f: the first factor, one
+after each fix, the compacted and the n-side factor; plain: the first
+alone).  Nothing where the program has no such key."""
 
 
 def read(run):

@@ -6,16 +6,20 @@
 One run: the cell's configuration and traffic mix by name
 (``BENCHMARK.json``, ``configs/``, ``traffic/``), the program's kernels
 loaded from the build cache in its checkout (built there on a first
-run), the instance pool (made once by worker processes, from the
-traffic's fixed pool seed, and then read from the pool cache in the
-checkout; the run's seed draws or orders the batches), the policy
-checkpoint, a warm-up on the cell's own shapes, then batches in a
-closed loop for ``--seconds``: one client, each batch started when the
-previous one has been selected and synchronised.  Afterwards the
-reference judges what the window produced (``check.py``), and the last
+run), the instance pool of the configuration's problem family (its kind
+module, ``kinds/<instance.kind>.py``: made once by worker processes,
+from the traffic's fixed pool seed, and then read from the pool cache
+in the checkout; the run's seed draws or orders the batches), the
+policy checkpoint where the traffic asks for one, a warm-up on the
+cell's own shapes, then batches through the traffic's entry point
+(``entries/``) in a closed loop for ``--seconds``: one client, each
+batch started when the previous one has been answered and
+synchronised.  Afterwards the reference judges what the window produced
+(the kind's ``numbers`` and ``check.py``), and the last
 line of standard output is the result: ``correct``, ``attempted``
-(instances solved in the window), ``failed`` (selected solutions that
-are infeasible or not finite), ``metrics`` (the cell's end-to-end
+(instances solved in the window), ``failed`` (answers that break the
+configuration's guarantees: for auctions, selected solutions that are
+infeasible or not finite), ``metrics`` (the cell's end-to-end
 metrics, or with ``--trace 1`` its per-layer ones, read in a profiled
 window), ``device``, ``breakdown`` (traced runs) and ``check`` (each
 compared number with its limit).
@@ -34,9 +38,8 @@ import os
 import sys
 import time
 
-from . import gen
 from .capture import Recorder
-from .manifest import Cell, entry, reader
+from .manifest import Cell, entry, kind as find_kind, reader
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -76,7 +79,7 @@ def pool_params(cell) -> tuple:
     size."""
     inst = dict(cell.config["instance"])
     kind = inst.pop("kind")
-    gen.maker(kind)                     # an unknown kind stops the run here
+    find_kind(kind)                     # an unknown kind stops the run here
     params = {k: v for k, v in inst.items() if k not in ("m_pad", "n_pad")}
     return kind, params, cell.traffic["pool"]
 
@@ -89,30 +92,6 @@ def pool_file(kind: str, params: dict, seed: int, size: int) -> str:
     return os.path.join(POOL_DIR, key + ".npz")
 
 
-def save_pool(path: str, instances) -> None:
-    import numpy as np
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".part"
-    with open(tmp, "wb") as f:
-        np.savez(f, prices=np.concatenate([p for p, _, _, _ in instances]),
-                 rows=np.concatenate([r for _, r, _, _ in instances]),
-                 cols=np.concatenate([c for _, _, c, _ in instances]),
-                 nnz=np.array([len(r) for _, r, _, _ in instances]),
-                 shapes=np.array([s for _, _, _, s in instances]))
-    os.replace(tmp, path)
-
-
-def load_pool(path: str):
-    import numpy as np
-    with np.load(path) as z:
-        shapes = [tuple(int(d) for d in s) for s in z["shapes"]]
-        cut_p = np.cumsum([n for _, n in shapes])[:-1]
-        cut_e = np.cumsum(z["nnz"])[:-1]
-        return [(p, r, c, s) for p, r, c, s in zip(
-            np.split(z["prices"], cut_p), np.split(z["rows"], cut_e),
-            np.split(z["cols"], cut_e), shapes)]
-
-
 class Pool:
     """The instance pool: loaded from the pool cache in the checkout, or
     made by worker processes and kept there (``start`` returns at once;
@@ -122,7 +101,8 @@ class Pool:
                  workers: int):
         self.t0 = time.perf_counter()
         self.path = pool_file(kind, params, seed, size)
-        self.make = functools.partial(gen.maker(kind), **params)
+        self.kind = find_kind(kind)
+        self.make = functools.partial(self.kind.make, **params)
         self.args = ([seed] * size, list(range(size)))
         self.ex = None
         self.cached = os.path.exists(self.path)
@@ -138,13 +118,16 @@ class Pool:
         try:
             if self.cached:
                 try:
-                    out = load_pool(self.path)
+                    out = self.kind.load(self.path)
                 except (OSError, ValueError, KeyError):
                     self.cached = False     # a damaged file: made anew
             if not self.cached:
                 out = list(self.fut) if self.ex is not None else \
                     [self.make(*a) for a in zip(*self.args)]
-                save_pool(self.path, out)
+                os.makedirs(os.path.dirname(self.path), exist_ok=True)
+                tmp = self.path + ".part"
+                self.kind.save(tmp, out)
+                os.replace(tmp, self.path)
         finally:
             self.close()
         self.seconds = time.perf_counter() - self.t0
@@ -170,7 +153,6 @@ def load_port(device: str) -> dict:
     import torch
     from lpbox_admm_tpu_torch.config import PolicyConfig, SolverConfig
     from lpbox_admm_tpu_torch.core import lp
-    from lpbox_admm_tpu_torch.core.problem import LpProblem
     from lpbox_admm_tpu_torch.models import fused_policy
     from lpbox_admm_tpu_torch.ops import fused_lp
     from lpbox_admm_tpu_torch.train import l2f
@@ -183,37 +165,10 @@ def load_port(device: str) -> dict:
     sync = (lambda: torch.cuda.synchronize()) if device == "cuda" \
         else (lambda: None)
     return dict(torch=torch, lp=lp, fused_lp=fused_lp,
-                fused_policy=fused_policy, l2f=l2f, LpProblem=LpProblem,
+                fused_policy=fused_policy, l2f=l2f,
                 SolverConfig=SolverConfig, PolicyConfig=PolicyConfig,
                 load_policy=load_policy, sync=sync,
                 build_s=time.perf_counter() - t0)
-
-
-def device_pool(port, instances, m_pad: int, n_pad: int, device: str):
-    """The pool as the program is given it: float32 prices (minimisation
-    form), the dense 0/1 incidence, f = 1 and the masks, laid out on the
-    device in a few large calls."""
-    import numpy as np
-    torch = port["torch"]
-    P = len(instances)
-    b = np.zeros((P, n_pad), np.float32)
-    rm = np.zeros((P, m_pad), bool)
-    vm = np.zeros((P, n_pad), bool)
-    nz = []
-    for i, (prices, rows, cols, (m, n)) in enumerate(instances):
-        if m > m_pad or n > n_pad:
-            raise ValueError(f"instance {i} is ({m}, {n}), over the "
-                             f"configuration's ({m_pad}, {n_pad})")
-        b[i, :n] = -prices
-        rm[i, :m] = True
-        vm[i, :n] = True
-        nz.append((i * m_pad + rows.astype(np.int64)) * n_pad + cols)
-    E = torch.zeros(P * m_pad * n_pad, dtype=torch.float32, device=device)
-    E[torch.from_numpy(np.concatenate(nz)).to(device)] = 1.0
-    t = lambda a: torch.from_numpy(a).to(device)
-    return dict(b=t(b), E=E.view(P, m_pad, n_pad),
-                f=torch.ones((P, m_pad), dtype=torch.float32, device=device),
-                row_mask=t(rm), var_mask=t(vm))
 
 
 def device_allocs(port) -> int:
@@ -240,7 +195,7 @@ class Run:
         import numpy as np
         self.cell, self.seed, self.trace = cell, seed, trace
         cfg, tr = cell.config, cell.traffic
-        inst = cfg["instance"]
+        self.kind = find_kind(cfg["instance"]["kind"])
         setup = {}
         t = time.perf_counter()
         if pool is None:
@@ -254,7 +209,7 @@ class Run:
             torch.backends.cuda.matmul.allow_tf32 = bool(cfg["allow_tf32"])
             torch.backends.cudnn.allow_tf32 = bool(cfg["allow_tf32"])
             scfg = port["SolverConfig"](**cfg["solver"])
-            pcfg = port["PolicyConfig"](**cfg["policy"])
+            pcfg = port["PolicyConfig"](**cfg.get("policy", {}))
             t = time.perf_counter()
             model = None
             if tr.get("policy"):
@@ -269,8 +224,8 @@ class Run:
         setup["pool_s"] = pool.seconds
         setup["pool_cached"] = pool.cached
         t = time.perf_counter()
-        dp = device_pool(port, self.instances, inst["m_pad"], inst["n_pad"],
-                         device)
+        gather = self.kind.upload(port, self.instances, cfg["instance"],
+                                  device)
         port["sync"]()
         setup["upload_s"] = time.perf_counter() - t
         solve = entry(tr["entry"])(port, dict(model=model, cfg=scfg,
@@ -286,10 +241,6 @@ class Run:
                 return lambda: order
             return lambda: np.sort(rng.choice(P, B, replace=False))
 
-        def gather(idx):
-            it = torch.as_tensor(idx, device=device)
-            return port["LpProblem"](**{k: v[it] for k, v in dp.items()})
-
         whole = gather(order)
 
         def problem(idx):
@@ -298,15 +249,7 @@ class Run:
         chk = tr["check"]
         pick = stream(seed, 2)
         self.captured_batch = int(pick.randint(0, chk["batch_of"]))
-        keep = set(chk["k1_launches"])
-        self.compare = {k: list(v) if isinstance(v, list) else v
-                        for k, v in chk["iter"].items()}
-        lo, hi = chk.get("k1_drawn", (0, 0))
-        if hi > lo:
-            drawn = int(pick.randint(lo, hi))
-            keep.add(drawn)
-            self.compare["k1"].append(drawn)
-        rec = self.rec = Recorder(port, trace, keep)
+        rec = self.rec = Recorder(port, trace, self.kind, chk, pick)
         try:
             t = time.perf_counter()
             warm = draws(stream(seed, 3))
@@ -344,7 +287,6 @@ class Run:
             from . import trace as trace_mod, work
             self.trace_data = trace_mod.reduce(prof, work.KERNELS)
             del prof
-        del dp
 
     def _window(self, solve, problem, draw, seconds, trace, port):
         from torch.profiler import record_function
@@ -371,26 +313,23 @@ class Run:
                        cpu_s=time.process_time() - p0,
                        allocs=device_allocs(port) - a0,
                        k1=c1[0] - c0[0], k2=c1[1] - c0[1],
-                       vars=sum(self.instances[i][3][1] for i in idx))
+                       vars=sum(self.kind.variables(self.instances[i])
+                                for i in idx))
             self.batches.append(res)
         self.rec.batch(False)
         self.window_s = end - t0
 
 
 def work_totals(run: Run) -> dict:
-    """K1's and K2's work over the window, from the recorded launches
-    (traced runs): operations, bytes and the least time, each launch's
+    """Each kernel group's work over the window (``work.KERNELS``), from
+    the recorded launches (traced runs): K2's here, the others' from the
+    kind's capture; operations, bytes and the least time, each launch's
     the larger of its two bounds."""
     from . import work
-    rec, pol = run.rec, run.cell.config["policy"]
-    launches = {"k1": [], "k2": []}
-    for (m_i, n_i, c_in, d_in, c_out, d_out, it0, window, nside, steps,
-         stride) in rec.k1_work:
-        newly = (d_out.cpu().numpy() > 0) & (d_in.cpu().numpy() == 0)
-        iters = (c_out.cpu().numpy() - c_in.cpu().numpy()) + newly
-        launches["k1"].append(work.k1_launch(
-            m_i.cpu().numpy(), n_i.cpu().numpy(), iters,
-            work.strided(it0, iters, stride), nside, steps))
+    rec, pol = run.rec, run.cell.config.get("policy")
+    launches = {name: [] for name in work.KERNELS}
+    for name, ws in rec.kind.work().items():
+        launches[name] += ws
     for rows, ws in rec.k2_rows:
         launches["k2"].append(work.k2_launch(
             rows, ws, pol["node_size"], pol["chunk_dim"], pol["embed_dim"],
@@ -427,15 +366,14 @@ def judge(run: Run, control: bool = False, witness: bool = False):
     from . import check
     torch = run.port["torch"]
     cfg = run.cell.config
-    inst = cfg["instance"]
     dev = run.batches[0]["sol"].device
-    pool = check.RefPool(run.instances, inst["m_pad"], inst["n_pad"], dev)
+    pool = run.kind.RefPool(run.instances, cfg["instance"], dev)
     captured = run.batches[min(run.captured_batch, len(run.batches) - 1)]
+    ckpt = os.path.join(ROOT, cfg["checkpoint"]) \
+        if cfg.get("checkpoint") else None
     with torch.no_grad():
-        nums = check.numbers(pool, run.batches, captured, run.rec,
-                             cfg["solver"], cfg["policy"],
-                             os.path.join(ROOT, cfg["checkpoint"]),
-                             run.compare, control=control, witness=witness)
+        nums = run.kind.numbers(pool, run.batches, captured, run.rec, cfg,
+                                ckpt, control=control, witness=witness)
     ok, rows = check.judge(nums, run.cell.limits["numbers"])
     return ok, nums["infeasible"], nums, rows
 
@@ -449,6 +387,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.seed < 0:
         ap.error("--seed must be >= 0")
+    # where set-up goes before ``Run``: the process's age at each step
+    ages = {"age_at_main_s": process_age_s()}
     os.makedirs(CACHE_DIR, exist_ok=True)
     os.environ["CUDA_CACHE_PATH"] = os.path.join(CACHE_DIR, "nv")
     os.environ["TRITON_CACHE_DIR"] = os.path.join(CACHE_DIR, "triton")
@@ -458,6 +398,7 @@ def main(argv=None) -> int:
     pool = start_pool(cell, args.seed, min(8, os.cpu_count() or 1))
     try:
         import torch
+        ages["age_after_torch_s"] = process_age_s()
         if not torch.cuda.is_available() or \
                 torch.cuda.device_count() < cell.chips:
             print(f"benchmark: {cell.name} needs {cell.chips} CUDA "
@@ -466,6 +407,7 @@ def main(argv=None) -> int:
                   f"{torch.cuda.device_count()}", file=sys.stderr)
             return 2
         torch.set_num_threads(1)
+        ages["age_after_card_check_s"] = process_age_s()
         run = Run(cell, args.seed, args.seconds, bool(args.trace),
                   device="cuda", pool=pool)
     finally:
@@ -495,7 +437,7 @@ def main(argv=None) -> int:
         result["breakdown"] = {"device_ops": td["device_ops"],
                                "idle_gaps": td["idle_gaps"]}
         result["work"] = dict(run.work, kernel_s=td["kernel_s"])
-    result["setup"] = dict(run.setup, setup_s=run.setup_s,
+    result["setup"] = dict(ages, **run.setup, setup_s=run.setup_s,
                            batches=len(run.batches),
                            captured_batch=run.captured_batch)
     result["per_batch"] = {

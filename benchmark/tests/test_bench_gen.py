@@ -64,9 +64,10 @@ def test_statistics_match_the_sequential_recipe():
 
 
 def test_unknown_kind_is_refused():
-    assert gen.maker("cauction") is gen.instance
-    with pytest.raises(ValueError, match="no generator"):
-        gen.maker("setcover")
+    from benchmark.manifest import kind
+    assert kind("cauction").make is gen.instance
+    with pytest.raises(ValueError, match="no kind"):
+        kind("setcover")
 
 
 def test_pool_kept_in_the_checkout_reads_back(tmp_path, monkeypatch):
