@@ -42,6 +42,7 @@ from ..ops.projections import (project_box, project_nonneg,
 from ..ops.schedule import gamma_at, rho_at
 from ..ops.stats import dual_residuals, rel_std_obj
 from ..ops.stencil import Stencil, build_stencil
+from ..utils import profiling
 from .problem import Device, as_device
 
 
@@ -460,12 +461,14 @@ def constraint_violation(state: GeneralState, prob
 def solve(prob, cfg: SolverConfig, max_iters: Optional[int] = None,
           window: int = 100, rule_fixing: bool = False) -> GeneralState:
     """Windows of ``window`` iterations until every instance is done or
-    ``max_iters`` (one host check per window); with ``rule_fixing`` each
-    window ends with the consistency counters' fixes."""
+    ``max_iters`` (one host check per window, the tracer's read site
+    ``general.done``); with ``rule_fixing`` each window ends with the
+    consistency counters' fixes."""
     if max_iters is None:
         max_iters = cfg.max_iters
     state = init_state(prob, cfg)
-    while state.it < max_iters and not bool(state.done.all()):
+    while state.it < max_iters and not profiling.read(
+            "general.done", bool, state.done.all()):
         state, _ = solve_window(state, prob, cfg, window, record=False,
                                 rule_fixing=rule_fixing)
         if rule_fixing:

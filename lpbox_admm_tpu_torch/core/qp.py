@@ -35,6 +35,7 @@ from ..ops.projections import project_box
 from ..ops.schedule import gamma_at, rho_at
 from ..ops.stats import rel_std_obj
 from ..ops.stencil import OFFSETS, Stencil
+from ..utils import profiling
 
 _EPS = 2.2204e-16
 
@@ -300,10 +301,12 @@ def select_solution(state: QpState, prob: QpProblem,
     incumbent rounding (every rounding of the unconstrained BQP is
     feasible; the reference reports only the last, Seg :1376), polished
     by ``repair_sweeps`` one-flip sweeps and ``pair_sweeps`` domino
-    sweeps (``ops.repair``).  Returns (sol, energy)."""
-    return select_from_sols(prob, solution(state), solution_best(state),
-                            repair_sweeps=repair_sweeps,
-                            pair_sweeps=pair_sweeps)
+    sweeps (``ops.repair``).  Returns (sol, energy).  The tracer's span
+    ``qp.select``."""
+    with profiling.span("qp.select"):
+        return select_from_sols(prob, solution(state), solution_best(state),
+                                repair_sweeps=repair_sweeps,
+                                pair_sweeps=pair_sweeps)
 
 
 def select_from_sols(prob: QpProblem, sol_last: torch.Tensor,
@@ -346,12 +349,14 @@ def solve(prob: QpProblem, cfg: SolverConfig,
           max_iters: Optional[int] = None, window: int = 100,
           rule_fixing: bool = False) -> QpState:
     """Plain full solve (ADMM_bqp_unconstrained_legacy, Seg :1200-1380),
-    window-quantized: one host check of ``done`` per window; with
-    ``rule_fixing`` each window ends with the counters' fixes."""
+    window-quantized: one host check of ``done`` per window (the
+    tracer's read site ``qp.done``); with ``rule_fixing`` each window
+    ends with the counters' fixes."""
     if max_iters is None:
         max_iters = cfg.max_iters
     state = init_state(prob, cfg)
-    while state.it < max_iters and not bool(state.done.all()):
+    while state.it < max_iters and not profiling.read(
+            "qp.done", bool, state.done.all()):
         state, _ = solve_window(state, prob, cfg, window, record=False,
                                 rule_fixing=rule_fixing)
         if rule_fixing:

@@ -17,13 +17,14 @@ package's ``experiments/run_seg.py``; reference Segmentation silo):
 
 Everything runs on the card unless ``-device cpu`` is given.  Reading
 and writing PNGs needs PIL; ``.npy`` intensity arrays load without it.
-``-phase test`` runs the compacting l2f (``l2f_solve_compact_qp``) on
-every device unless ``-compact 0`` asks for the masked one
-(``l2f_solve``).  The JAX package's ``-compact -1`` compacts on the CPU
-only, because the TPU's gathers serialize; on the card the compacting
-solve's best wall was at most the masked one's at 1e4 px x 8 and 1e5
-px x 8 images, at the same quality (chip_smoke's seg phase, PERF.md
-section 5).
+``-phase test`` runs ``train.l2f.l2f_solve_seg``: the compacting l2f
+(``l2f_solve_compact_qp``) on every device unless ``-compact 0`` asks
+for the masked one (``l2f_solve``), then selection and the descents
+(the reported wall includes them).  The JAX package's ``-compact -1``
+compacts on the CPU only, because the TPU's gathers serialize; on the
+card the compacting solve's best wall was at most the masked one's at
+1e4 px x 8 and 1e5 px x 8 images, at the same quality (chip_smoke's seg
+phase, PERF.md section 5).
 """
 
 from __future__ import annotations
@@ -110,7 +111,6 @@ def main(argv: Optional[Sequence[str]] = None, log=print):
         args.save_dir = os.path.join("saved_model", "seg", args.net)
     from ..adapters import segmentation as seg
     from ..config import SEG_CONFIG, PolicyConfig
-    from ..core import qp
     from ..models.policy import build_policy
     from ..train import imitation, l2f
     from ..utils import io as uio
@@ -231,24 +231,19 @@ def main(argv: Optional[Sequence[str]] = None, log=print):
                                            "best_checkpoint.npz")
     ts = trainer.load(path)
     compact = args.compact != 0
-    solver = l2f.l2f_solve_compact_qp if compact else l2f.l2f_solve
     t0 = time.perf_counter()
-    state = solver(eval_prob, trainer.variables(ts), cfg, pcfg, ws=args.ws,
-                   max_iter=args.max_eval_iters)
-    if args.refine_iters > 0:
-        state = l2f.qp_refine_boundary(state, eval_prob, cfg,
-                                       iters=args.refine_iters,
-                                       rounds=args.refine_rounds,
-                                       band=args.refine_band)
-    sync(state.x)
+    state, res = l2f.l2f_solve_seg(
+        eval_prob, trainer.variables(ts), cfg, pcfg, ws=args.ws,
+        max_iter=args.max_eval_iters, compact=compact,
+        refine_iters=args.refine_iters, refine_rounds=args.refine_rounds,
+        refine_band=args.refine_band, repair_sweeps=args.repair_sweeps,
+        pair_sweeps=args.pair_sweeps)
+    sync(res["solution"])
     wall = time.perf_counter() - t0
     m = l2f.l2f_metrics_qp(state, eval_prob, eval_ds.oracle_obj, eval_labels,
                            repair_sweeps=args.repair_sweeps,
                            pair_sweeps=args.pair_sweeps)
-    sol, _ = qp.select_solution(state, eval_prob,
-                                repair_sweeps=args.repair_sweeps,
-                                pair_sweeps=args.pair_sweeps)
-    sol = sol.cpu().numpy()
+    sol = res["solution"].cpu().numpy()
     mask = eval_prob.mask.cpu().numpy()
     for i, p in enumerate(eval_paths):
         name = os.path.splitext(os.path.basename(p))[0]

@@ -9,9 +9,10 @@ through ``failed``.  Relative tolerance against ``tol^2 * ||rhs||^2``,
 Jacobi preconditioning, initial iterate from the caller (the reference
 warm-starts at y1).
 
-The loop ends when no row runs, read on the host once per iteration:
-a finished row's update is a no-op, so the result is that of the JAX
-package's ``while_loop``.
+The loop ends when no row runs, read on the host once per iteration
+(the tracer's read site ``cg.run``): a finished row's update is a
+no-op, so the result is that of the JAX package's ``while_loop``.  The
+iterations the loop ran add to the tracer's counter ``cg.iters``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils import profiling
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -65,7 +68,7 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], rhs: torch.Tensor,
     failed = torch.zeros((B,), dtype=torch.bool, device=rhs.device)
     row_iters = torch.zeros((B,), dtype=torch.int32, device=rhs.device)
     i = 0
-    while i < maxiters and bool(run.any()):
+    while i < maxiters and profiling.read("cg.run", bool, run.any()):
         row_iters = row_iters + run.to(torch.int32)
         tmp = matvec(p)
         ptmp = _dot(p, tmp)
@@ -87,4 +90,5 @@ def pcg(matvec: Callable[[torch.Tensor], torch.Tensor], rhs: torch.Tensor,
         failed = failed | bad
         run = still
         i += 1
+    profiling.count("cg.iters", i)
     return CGResult(x=x, iters=row_iters, failed=failed)

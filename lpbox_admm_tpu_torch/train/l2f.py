@@ -12,13 +12,16 @@ problem type as the JAX package's ``_core_of`` does: ``LpProblem`` ->
 the boundary gate (``qp_boundary_margins``, every window) and the
 trajectory-extremity fixes (``traj_fix_*``) also act.
 
-The segmentation half: ``l2f_solve_compact_qp`` runs the first window on
-the grid, gathers the free pixels into a flat ``core.general`` problem
-(``core.qp.compact``), shrinks it again as more pixels fix
-(``core.general.compact_sparse``) and scatters the result back into a
-grid ``QpState``; ``qp_refine_boundary`` re-frees fixed pixels on the
-label boundary for a few more iterations; ``l2f_metrics_qp`` reports
-the energy gap and pixel agreement.  As in the JAX package, the compact
+The segmentation half: ``l2f_solve_seg`` is the whole solve that
+``run_seg -phase test`` runs, from the first window to the selected
+labelling, traced when given ``timings``.  Inside it
+``l2f_solve_compact_qp`` runs the first window on the grid, gathers the
+free pixels into a flat ``core.general`` problem (``core.qp.compact``),
+shrinks it again as more pixels fix (``core.general.compact_sparse``)
+and scatters the result back into a grid ``QpState``;
+``qp_refine_boundary`` re-frees fixed pixels on the label boundary for
+a few more iterations; ``l2f_metrics_qp`` reports the energy gap and
+pixel agreement.  As in the JAX package, the compact
 path applies the boundary gate to its grid window only and ignores the
 ``traj_fix_*`` flags (it warns when given them).
 
@@ -369,27 +372,15 @@ def l2f_solve_compact(prob: LpProblem, model: nn.Module, cfg: SolverConfig,
                             rho_boost_iters, max_iter, ws, repair_rounds,
                             swap_rounds, cfg_changed=cfg_tail is not cfg)
     if timings is not None:
-        sums = tracer.finish().sums()
-        for name, key in SPAN_KEYS.items():
-            timings[key] = timings.get(key, 0.0) + sums.get(name, 0.0)
-        sites = timings.setdefault("host_read_sites", {})
-        for site, k in tracer.reads().items():
-            sites[site] = sites.get(site, 0) + k
-        timings["host_reads"] = sum(sites.values())
-        timings["host_read_wait_s"] = timings.get("host_read_wait_s", 0.0) \
-            + tracer.read_wait
+        profiling.reduce_timings(tracer, SPAN_KEYS, timings)
+        timings.setdefault("k1_splits", [])
+        timings.setdefault("k1_split_launches", 0)
         timings["buckets"] = (n_b, m_b)
         timings["nside"] = n_b <= m_b
         timings["policy_route"] = policy_route
         timings["tail_route"] = tail_route
         timings["policy_e_route"] = policy_e_route
         timings["tail_e_route"] = tail_e_route
-        splits = timings.setdefault("k1_splits", [])
-        splits += tracer.notes.get("k1.split", [])
-        timings["k1_split_launches"] = sum(c > 1 for _, c, _ in splits)
-        pcts = [p for _, _, p in splits if p is not None]
-        if pcts:
-            timings["k1_sm_pct"] = sum(pcts) / len(pcts)
     return state, {
         "solution": sol_full,
         "obj": obj,
@@ -669,7 +660,15 @@ def l2f_solve_compact_qp(prob: qp.QpProblem, model: nn.Module,
 
     The boundary gate applies to the grid window only (the flat problem
     has no grid to read the boundary from), and the ``traj_fix_*`` flags
-    are ignored, as in the JAX package (a warning says so)."""
+    are ignored, as in the JAX package (a warning says so).
+
+    Under an active tracer (``l2f_solve_seg``'s ``timings``): the spans
+    ``seg.grid`` (a grid window: iterations, recording, scoring, the
+    boundary gate and the fix), ``seg.compact`` (``qp.compact`` and each
+    re-compaction) and ``seg.flat`` (a flat window), the counter
+    ``seg.bucket`` (the first flat bucket's width) and the read sites
+    ``seg.done`` (a window's all-done check), ``seg.bucket_n`` (the
+    first bucket's decision) and ``seg.rebucket_n`` (each later one)."""
     given = [f for f in _TRAJ_FLAGS if getattr(pcfg, f)]
     if given:
         warnings.warn(f"l2f_solve_compact_qp ignores {', '.join(given)} "
@@ -682,43 +681,115 @@ def l2f_solve_compact_qp(prob: qp.QpProblem, model: nn.Module,
     windows = max(1, max_iter // ws)
     score = _scorer(model, pcfg, prob.device, row_chunk)
     margins = _grid_margins(prob, pcfg)
-    state = qp.init_state(prob, cfg)
-    state, max_free, all_done = _qp_policy_window(state, prob, score, cfg,
-                                                  pcfg, ws, margins)
-    if windows == 1 or bool(all_done):
+    with profiling.span("seg.grid"):
+        state = qp.init_state(prob, cfg)
+        state, max_free, all_done = _qp_policy_window(
+            state, prob, score, cfg, pcfg, ws, margins)
+    if windows == 1 or profiling.read("seg.done", bool, all_done):
         return state
-    n_b = _bucket(int(max_free), min_bucket, n)
+    n_b = _bucket(profiling.read("seg.bucket_n", int, max_free), min_bucket,
+                  n)
     if n_b >= n:
         # nothing to gain: stay on the grid
         for _ in range(windows - 1):
-            state, _, all_done = _qp_policy_window(state, prob, score, cfg,
-                                                   pcfg, ws, margins)
-            if bool(all_done):
+            with profiling.span("seg.grid"):
+                state, _, all_done = _qp_policy_window(
+                    state, prob, score, cfg, pcfg, ws, margins)
+            if profiling.read("seg.done", bool, all_done):
                 break
         return state
 
+    profiling.count("seg.bucket", n_b)
     state0 = state
     free_full, fixed_full = state.free, state.fixed_val
-    gstate, gprob, idx = qp.compact(state, prob, cfg, n_b)
-    margins_c = torch.gather(margins.reshape(prob.batch, -1), 1, idx)
+    with profiling.span("seg.compact"):
+        gstate, gprob, idx = qp.compact(state, prob, cfg, n_b)
+        margins_c = torch.gather(margins.reshape(prob.batch, -1), 1, idx)
     for w in range(1, windows):
-        gstate, max_free, all_done = _flat_policy_window(
-            gstate, gprob, score, cfg, ws, margins_c)
-        if bool(all_done):
+        with profiling.span("seg.flat"):
+            gstate, max_free, all_done = _flat_policy_window(
+                gstate, gprob, score, cfg, ws, margins_c)
+        if profiling.read("seg.done", bool, all_done):
             break
         if recompact and w < windows - 1:
-            n_b2 = _bucket(int(max_free), min_bucket, n_b)
+            n_b2 = _bucket(profiling.read("seg.rebucket_n", int, max_free),
+                           min_bucket, n_b)
             if n_b2 <= n_b // 2:
-                # persist the fixes made inside the current flat problem:
-                # their slots may be dropped by the smaller bucket
-                free_full, fixed_full = _persist_fix_snapshot(
-                    gstate, idx, free_full, fixed_full)
-                gstate, gprob, idx2 = general.compact_sparse(gstate, gprob,
-                                                             n_b2)
-                idx = torch.gather(idx, 1, idx2)
-                margins_c = torch.gather(margins_c, 1, idx2)
+                with profiling.span("seg.compact"):
+                    # persist the fixes made inside the current flat
+                    # problem: their slots may be dropped by the smaller
+                    # bucket
+                    free_full, fixed_full = _persist_fix_snapshot(
+                        gstate, idx, free_full, fixed_full)
+                    gstate, gprob, idx2 = general.compact_sparse(
+                        gstate, gprob, n_b2)
+                    idx = torch.gather(idx, 1, idx2)
+                    margins_c = torch.gather(margins_c, 1, idx2)
                 n_b = n_b2
     return _qp_reassemble(gstate, idx, free_full, fixed_full, state0, prob)
+
+
+#: ``l2f_solve_seg``'s ``timings`` keys of the tracer's spans, and of its
+#: counters
+SEG_SPAN_KEYS = {"seg.grid": "grid_s", "seg.compact": "seg_compact_s",
+                 "seg.flat": "flat_s", "qp.select": "qp_select_s"}
+SEG_COUNTER_KEYS = {"cg.iters": "cg_iters", "seg.bucket": "bucket"}
+
+
+def l2f_solve_seg(prob: qp.QpProblem, model: nn.Module, cfg: SolverConfig,
+                  pcfg: PolicyConfig, ws: int = 10,
+                  max_iter: Optional[int] = None, compact: bool = True,
+                  min_bucket: int = 1024, recompact: bool = True,
+                  refine_iters: int = 0, refine_rounds: int = 1,
+                  refine_band: int = 1, repair_sweeps: int = 0,
+                  pair_sweeps: int = 0, row_chunk: int = 8192,
+                  timings: Optional[dict] = None):
+    """The segmentation l2f solve from the first grid window to the
+    selected labelling (``run_seg -phase test``): the compacting solve
+    (``l2f_solve_compact_qp``; with ``compact=False`` the masked
+    ``l2f_solve``), the optional boundary refinement
+    (``qp_refine_boundary`` with ``refine_iters`` > 0), then
+    ``qp.select_solution`` with ``repair_sweeps`` one-flip and
+    ``pair_sweeps`` domino sweeps.
+
+    ``timings`` (a dict) turns the tracer on for the solve
+    (``utils.profiling``; on the card CUDA events, one wait at the end)
+    and receives the seconds of its spans (``SEG_SPAN_KEYS``: the grid
+    windows ``grid_s``, the compactions ``seg_compact_s``, the flat
+    windows ``flat_s``, the selection ``qp_select_s``), its counters
+    (``SEG_COUNTER_KEYS``: the CG iterations of every x-update
+    ``cg_iters``, the first flat bucket's width ``bucket``, 0 where the
+    solve stayed on the grid), and its host reads (``host_reads``, per
+    site ``host_read_sites``, the host's time in them
+    ``host_read_wait_s``).  Without it the solve creates no event and
+    makes only the host reads it needs.  Returns ``(state, out)``: the
+    final ``QpState`` and the selected labelling (B, H, W) ``solution``,
+    its ``energy`` (B,), the fixed valid pixels ``n_fixed`` (B,) and
+    the ``iterations``."""
+    tracer = None if timings is None else profiling.PhaseTimer(prob.device)
+    with profiling.tracing(tracer):
+        if compact:
+            state = l2f_solve_compact_qp(prob, model, cfg, pcfg, ws=ws,
+                                         max_iter=max_iter,
+                                         min_bucket=min_bucket,
+                                         recompact=recompact,
+                                         row_chunk=row_chunk)
+        else:
+            state = l2f_solve(prob, model, cfg, pcfg, ws=ws,
+                              max_iter=max_iter, row_chunk=row_chunk)
+        if refine_iters > 0:
+            state = qp_refine_boundary(state, prob, cfg, iters=refine_iters,
+                                       rounds=refine_rounds,
+                                       band=refine_band)
+        sol, energy = qp.select_solution(state, prob,
+                                         repair_sweeps=repair_sweeps,
+                                         pair_sweeps=pair_sweeps)
+    if timings is not None:
+        profiling.reduce_timings(tracer, SEG_SPAN_KEYS, timings,
+                                 counters=SEG_COUNTER_KEYS)
+    return state, {"solution": sol, "energy": energy,
+                   "n_fixed": ((~state.free) & prob.mask).sum((-2, -1)),
+                   "iterations": state.it}
 
 
 def qp_refine_boundary(state: qp.QpState, prob: qp.QpProblem,

@@ -210,15 +210,39 @@ def net_of(state_dict: Mapping[str, torch.Tensor]) -> str:
         else "mlp"
 
 
-def load_policy(path: str, node_size: int = 20, chunk_dim: int = 5,
-                pe_dim: int = 5, device: Device = "cuda") -> nn.Module:
+def policy_shape(state_dict: Mapping[str, torch.Tensor],
+                 pe_dim: int = 5) -> tuple:
+    """(node_size, chunk_dim) of a policy's weights: the classifier's
+    input width over the embedding width, and the embedding's input
+    width less ``pe_dim``."""
+    embed = state_dict["embed.weight"]                  # (E, C + P)
+    cls_in = state_dict["classifier.layers.0.weight"].shape[1]
+    node_size, rest = divmod(cls_in, embed.shape[0])
+    if rest or embed.shape[1] <= pe_dim:
+        raise ValueError(f"a classifier input of {cls_in} and an embedding "
+                         f"of {tuple(embed.shape)} fit no node_size and "
+                         f"chunk_dim with pe_dim {pe_dim}")
+    return node_size, embed.shape[1] - pe_dim
+
+
+def load_policy(path: str, node_size: Optional[int] = None,
+                chunk_dim: Optional[int] = None, pe_dim: int = 5,
+                device: Device = "cuda") -> nn.Module:
     """Build the checkpoint's policy module (MHA or MLP, with the
     checkpoint's output width) in evaluation mode on ``device`` with the
-    checkpoint's weights."""
+    checkpoint's weights.  ``node_size`` and ``chunk_dim`` default to
+    the checkpoint's own (``policy_shape``: ``ca500_mha`` 20 and 5,
+    ``seg_mha`` 5 and 5); a value given that the checkpoint contradicts
+    raises, naming both."""
     sd = variables_from_npz(path)
+    have = dict(zip(("node_size", "chunk_dim"), policy_shape(sd, pe_dim)))
+    for name, want in (("node_size", node_size), ("chunk_dim", chunk_dim)):
+        if want is not None and want != have[name]:
+            raise ValueError(f"{name}={want} was asked for, but the "
+                             f"checkpoint {path} has {name}={have[name]}")
     out_dim = sd["classifier.layers.3.weight"].shape[0]
-    model = build_policy(net_of(sd), node_size, chunk_dim, pe_dim,
-                         out_dim=out_dim)
+    model = build_policy(net_of(sd), have["node_size"], have["chunk_dim"],
+                         pe_dim, out_dim=out_dim)
     model.load_state_dict(sd, strict=True)
     return model.to(as_device(device)).eval()
 

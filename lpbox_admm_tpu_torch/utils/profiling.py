@@ -11,16 +11,19 @@ span is also a ``record_function`` range under its own name, on the
 clock of the device trace.
 
 The program's instrumented sites call the module functions ``span``,
-``read`` and ``note``.  They act only while a timer is active (``with
-timer:``); with none active a span is one shared no-op context, a read
-is the plain read it stands for and a note nothing, at the cost of one
-``None`` check:
+``read``, ``count`` and ``note``.  They act only while a timer is
+active (``with timer:``); with none active a span is one shared no-op
+context, a read is the plain read it stands for and a count or a note
+nothing, at the cost of one ``None`` check:
 
     t = PhaseTimer(device)
     with t:                      # the solve's spans, counters and reads
         state = solve(prob)
     t.finish()                   # one wait, on the last event
     t.sums()                     # seconds per span name of the solve
+
+``reduce_timings`` turns a finished solve's timer into the ``timings``
+dict that the solve functions fill (``train.l2f``).
 
 ``phase`` is ``span`` on the timer itself, active or not, and ``sync``
 the explicit device synchronise of the JAX package's API:
@@ -86,6 +89,14 @@ def read(site: str, fn: Callable[..., T], *args) -> T:
     if t is None:
         return fn(*args)
     return t.read(site, fn, *args)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the active timer's counter ``name`` (a host value the
+    site already holds: no read)."""
+    t = _ACTIVE.get()
+    if t is not None:
+        t.count(name, k)
 
 
 def note(name: str, value) -> None:
@@ -250,6 +261,40 @@ class PhaseTimer:
         for name, k in sorted(self.counters.items()):
             lines.append(f"{name:>20s}: {k}")
         return "\n".join(lines)
+
+
+def reduce_timings(tracer: PhaseTimer, span_keys: Dict[str, str],
+                   out: dict, counters: Optional[Dict[str, str]] = None
+                   ) -> dict:
+    """Add a solve's tracer to its ``timings`` dict ``out``, after the one
+    wait (``finish``): the seconds of each span name of ``span_keys``
+    under its key, the host reads per site (``host_read_sites``), their
+    sum (``host_reads``) and the host's time in them
+    (``host_read_wait_s``), each counter of ``counters`` under its key;
+    where the tracer holds K1's cluster notes (``k1.split``) also those
+    (``k1_splits``: (live, C, share of the SMs) a launch;
+    ``k1_split_launches``: the launches with C > 1; ``k1_sm_pct``: the
+    mean share, where the card gave one).  Sums accumulate over the
+    solves that share ``out``."""
+    sums = tracer.finish().sums()
+    for name, key in span_keys.items():
+        out[key] = out.get(key, 0.0) + sums.get(name, 0.0)
+    sites = out.setdefault("host_read_sites", {})
+    for site, k in tracer.reads().items():
+        sites[site] = sites.get(site, 0) + k
+    out["host_reads"] = sum(sites.values())
+    out["host_read_wait_s"] = out.get("host_read_wait_s", 0.0) \
+        + tracer.read_wait
+    for name, key in (counters or {}).items():
+        out[key] = out.get(key, 0) + tracer.counters.get(name, 0)
+    if "k1.split" in tracer.notes:
+        splits = out.setdefault("k1_splits", [])
+        splits += tracer.notes["k1.split"]
+        out["k1_split_launches"] = sum(c > 1 for _, c, _ in splits)
+        pcts = [p for _, _, p in splits if p is not None]
+        if pcts:
+            out["k1_sm_pct"] = sum(pcts) / len(pcts)
+    return out
 
 
 def perturb(rng: np.random.RandomState, arr: torch.Tensor,
